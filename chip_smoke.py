@@ -1,0 +1,278 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--profile DIR]
+
+Phases (any failure exits non-zero and prints no result line):
+  1. card name and power limit (nvidia-smi); build every kernel from
+     qsp_slam_tpu_torch/csrc with nvcc, one process per source in parallel;
+  2. K1 (FAST score + NMS) against its plain PyTorch version on the card:
+     all 8 pyramid levels of a rendered frame at t = 20 and 7, plus 8x8 and
+     37x53 images; identical keep masks, scores within rtol 1e-5 / atol 1e-4;
+  3. K2 (packed Hamming) against its plain version at (8192, 4000),
+     (2048, 2048) and (70, 130): exactly equal;
+  4. the main path: `SlamSystem.track_rgbd` on 60 rendered frames
+     (uint8 gray, uint16 depth at scale 5000) with 4000 features at
+     640x480, default capacities, objects and loop closing off.  Launch
+     counters are zeroed just before and read just after; K1 must launch
+     16 times per frame and K2 at least once; ATE < 0.05 m and >= 2
+     keyframes;
+  5. the same path on 10 frames at 500 features on the card and, as the
+     reference, on the CPU (plain kernel versions): camera centres agree
+     within 1 cm and the keyframes are the same;
+  6. per-kernel times (CUDA events) beside the plain version, the library
+     yardstick where one exists and the bound.
+Then a `{"kernels": [...]}` line, the card line again, and as the last line
+`{"ok": true, "device": {...}}`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from qsp_slam_tpu_torch.data.render import make_room, orbit_trajectory, render_frame  # noqa: E402
+from qsp_slam_tpu_torch.eval.ate import ate_rmse, positions_from_Tcw  # noqa: E402
+from qsp_slam_tpu_torch.frontend.matcher import pack_pm  # noqa: E402
+from qsp_slam_tpu_torch.frontend.orb import OrbConfig  # noqa: E402
+from qsp_slam_tpu_torch.frontend.pyramid import build_pyramid  # noqa: E402
+from qsp_slam_tpu_torch.ops import build  # noqa: E402
+from qsp_slam_tpu_torch.ops.fast_nms import fast_score_nms, fast_score_nms_plain  # noqa: E402
+from qsp_slam_tpu_torch.ops.hamming import hamming_packed, hamming_packed_plain  # noqa: E402
+from qsp_slam_tpu_torch.slam.system import SlamSystem  # noqa: E402
+from qsp_slam_tpu_torch.slam.tracking import TrackingConfig  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FP32_OPS_PER_S = 67e12  # H100 SXM peak outside the tensor cores
+K1_OPS_PER_PX = 140  # 16 ring taps x ~7 ops + arc test + 3x3 max
+FRAMES = 60  # main-path frames; the first 10 are warm-up
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[0]
+
+
+def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Mean ms of `fn()` over `reps` calls, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def render_sequence(n: int, cfg, device):
+    """Rendered frames as a camera delivers them: uint8 gray, uint16 depth."""
+    room = make_room(device=device)
+    Tcw_gt = orbit_trajectory(n)
+    frames = []
+    for i in range(n):
+        g, d = render_frame(room, Tcw_gt[i], cfg.intr)
+        g8 = torch.clamp(torch.round(g), 0, 255).to(torch.uint8).cpu().numpy()
+        d16 = torch.clamp(torch.round(d * cfg.depth_png_scale), 0, 65535).cpu().numpy().astype(np.uint16)
+        frames.append((g8, d16))
+    return frames, Tcw_gt
+
+
+def run_slam(cfg, frames, device, warmup: int = 10):
+    sysm = SlamSystem(cfg, device=device)
+    wall = []
+    for g8, d16 in frames:
+        t0 = time.perf_counter()
+        sysm.track_rgbd(g8, d16)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return sysm, wall[warmup:]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--profile", default=None, help="write a torch.profiler table here")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+
+    # 1. card, build ---------------------------------------------------
+    card = card_line()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    logs = build.build(["fast_nms", "hamming"], verbose=True)
+    log(f"phase 1 build: {time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        print(f"[nvcc {name}]\n{text}", file=sys.stderr)
+
+    cfg = TrackingConfig(orb=OrbConfig(num_features=4000), depth_png_scale=5000.0)
+    frames, Tcw_gt = render_sequence(FRAMES, cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    # 2. K1 against its plain version ----------------------------------
+    levels = build_pyramid(torch.from_numpy(frames[0][0]).cuda().float(), cfg.orb.pyramid)
+    extra = [torch.randint(0, 256, s, generator=gen, device="cuda").float() for s in ((8, 8), (37, 53))]
+    k1_err = 0.0
+    for img in levels + extra:
+        for t in (cfg.orb.fast_threshold, cfg.orb.fast_threshold_min):
+            got, ref = fast_score_nms(img, t), fast_score_nms_plain(img, t)
+            torch.cuda.synchronize()
+            if not torch.equal(got > 0, ref > 0):
+                raise AssertionError(f"K1 keep mask differs at {tuple(img.shape)} t={t}")
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
+            k1_err = max(k1_err, float((got - ref).abs().max()))
+    log(f"phase 2 K1 vs plain: {len(levels) + len(extra)} images x 2 thresholds, masks equal, max abs err {k1_err}")
+
+    # 3. K2 against its plain version ----------------------------------
+    def words(n):
+        return torch.randint(-2**31, 2**31, (n, 8), generator=gen, device="cuda",
+                             dtype=torch.int64).to(torch.int32)
+
+    k2_in = {}
+    for A, B in ((8192, 4000), (2048, 2048), (70, 130)):
+        a, b = words(A), words(B)
+        k2_in[(A, B)] = (a, b)
+        got, ref = hamming_packed(a, b), hamming_packed_plain(a, b)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K2 differs from plain at ({A}, {B})")
+    log("phase 3 K2 vs plain: (8192, 4000), (2048, 2048), (70, 130) exactly equal")
+
+    # 4. main path at full width --------------------------------------
+    fast_score_nms.launches = 0
+    hamming_packed.launches = 0
+    sysm, wall = run_slam(cfg, frames, "cuda")
+    launches = {"fast_nms": fast_score_nms.launches, "hamming": hamming_packed.launches}
+    est = np.stack(sysm.trajectory)
+    ate = ate_rmse(est, Tcw_gt[: len(est)])
+    s = sysm.summary()
+    log(f"phase 4 main path: {len(frames)} frames, {s['keyframes']} keyframes, "
+        f"{s['num_points']} points, ATE {ate:.5f} m, launches {launches}")
+    log(f"  ms/frame median after 10 warm-up frames: {float(np.median(wall)):.3f} "
+        f"(track {s['track_ms_median']:.3f}, local BA + fusion per keyframe {s['ba_ms_median']:.3f})")
+    if not np.isfinite(est).all() or ate >= 0.05 or s["keyframes"] < 2:
+        raise AssertionError(f"main path failed: ATE {ate}, keyframes {s['keyframes']}")
+    if launches["fast_nms"] != 16 * len(frames) or launches["hamming"] < 1:
+        raise AssertionError(f"kernel launches off the main path: {launches}")
+
+    # 5. small input: card against the CPU reference --------------------
+    small = TrackingConfig(orb=OrbConfig(num_features=500), depth_png_scale=5000.0)
+    runs = {dev: run_slam(small, frames[:10], dev, warmup=0)[0] for dev in ("cuda", "cpu")}
+    p = {dev: positions_from_Tcw(np.stack(r.trajectory).astype(np.float64)) for dev, r in runs.items()}
+    gap = float(np.linalg.norm(p["cuda"] - p["cpu"], axis=1).max())
+    same_kfs = runs["cuda"].stats["kf_frames"] == runs["cpu"].stats["kf_frames"]
+    log(f"phase 5 card vs CPU reference, 10 frames at 500 features: max centre gap {gap:.2e} m, "
+        f"keyframes {runs['cuda'].stats['kf_frames']} vs {runs['cpu'].stats['kf_frames']}")
+    if gap > 0.01 or not same_kfs:
+        raise AssertionError("card and CPU runs disagree")
+
+    # 6. kernel times --------------------------------------------------
+    ths = (cfg.orb.fast_threshold, cfg.orb.fast_threshold_min)
+
+    def k1_frame(fn):
+        return lambda: [fn(im, t) for im in levels for t in ths]
+
+    px = sum(im.numel() for im in levels) * len(ths)
+    k1_bound = max(px * 8 / HBM_BYTES_PER_S, px * K1_OPS_PER_PX / FP32_OPS_PER_S) * 1e3
+    a, b = k2_in[(8192, 4000)]
+    pm_a = torch.where(torch.rand(8192, 256, generator=gen, device="cuda") < 0.5, 1, -1).to(torch.int8)
+    pm_b = torch.where(torch.rand(4000, 256, generator=gen, device="cuda") < 0.5, 1, -1).to(torch.int8)
+    if not torch.equal(hamming_packed(pack_pm(pm_a), pack_pm(pm_b)),
+                       ((256 - pm_a.float() @ pm_b.float().T) // 2).to(torch.int32)):
+        raise AssertionError("K2 differs from the ±1 matmul yardstick")
+    k2_bytes = (8192 + 4000) * 32 + 8192 * 4000 * 4
+    k2_ops = 8192 * 4000 * 8 * 3
+    kernels = [
+        {
+            "name": "fast_score_nms", "route": "cuda",
+            "source": "qsp_slam_tpu_torch/csrc/fast_nms.cu",
+            "replaces": "qsp_slam_tpu/ops/fast_pallas.py:129",
+            "launches": launches["fast_nms"], "max_abs_err": k1_err,
+            "ms": cuda_ms(k1_frame(fast_score_nms), 50),
+            "plain_ms": cuda_ms(k1_frame(fast_score_nms_plain), 10),
+            "bound_ms": k1_bound,
+            "bound_by": "bytes" if px * 8 / HBM_BYTES_PER_S >= px * K1_OPS_PER_PX / FP32_OPS_PER_S else "operations",
+            "library_ms": None,
+            "unit": "one frame: 8 pyramid levels x 2 thresholds (16 launches)",
+        },
+        {
+            "name": "hamming_packed", "route": "cuda",
+            "source": "qsp_slam_tpu_torch/csrc/hamming.cu",
+            "replaces": "qsp_slam_tpu/ops/hamming.py:48",
+            "launches": launches["hamming"], "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: hamming_packed(a, b), 50),
+            "plain_ms": cuda_ms(lambda: hamming_packed_plain(a, b), 5),
+            "bound_ms": max(k2_bytes / HBM_BYTES_PER_S, k2_ops / FP32_OPS_PER_S) * 1e3,
+            "bound_by": "bytes" if k2_bytes / HBM_BYTES_PER_S >= k2_ops / FP32_OPS_PER_S else "operations",
+            "library_ms": cuda_ms(lambda: (256 - pm_a.float() @ pm_b.float().T) // 2, 20),
+            "unit": "one call at (8192 map points, 4000 features)",
+        },
+    ]
+    for k in kernels:
+        log(f"phase 6 {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
+            f"library {k['library_ms']}, bound {k['bound_ms']:.4f} by {k['bound_by']})")
+
+    if args.profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        out = Path(args.profile)
+        out.mkdir(parents=True, exist_ok=True)
+        sysm2 = SlamSystem(cfg, device="cuda")
+        for g8, d16 in frames[:12]:
+            sysm2.track_rgbd(g8, d16)
+        torch.cuda.synchronize()
+        kf_before = sysm2.stats["keyframes"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for g8, d16 in frames[12:20]:
+                sysm2.track_rgbd(g8, d16)
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        events = prof.key_averages()
+        (out / "profile.txt").write_text(events.table(sort_by="cuda_time_total", row_limit=60))
+        def self_dev_us(e):
+            return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+        # Kernel rows only: an operator's row repeats its kernels' time.
+        busy_us = sum(self_dev_us(e) for e in events if e.device_type == DeviceType.CUDA)
+        log(f"profile of frames 12-19 (written to {out / 'profile.txt'}): window {window_us / 1e3:.1f} ms, "
+            f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / window_us:.1f}%), "
+            f"keyframes in window {sysm2.stats['keyframes'] - kf_before}")
+        for e in events:
+            for name in ("fast_score_nms_kernel", "hamming_kernel"):
+                if name in e.key and self_dev_us(e) > 0:
+                    log(f"  device time of {name}: {e.count} launches, {self_dev_us(e) / e.count:.2f} us each")
+
+    print(json.dumps({"kernels": kernels}))
+    print(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

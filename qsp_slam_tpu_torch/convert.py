@@ -1,0 +1,64 @@
+"""Carry state from the JAX package into the port.
+
+This path has no learned weights; its state is the map, the keyframe
+snapshot store and the configuration.  The functions take the JAX objects
+as numpy arrays or plain field dictionaries, so this module never imports
+JAX:
+
+    map_state_from_numpy({k: np.asarray(v) for k, v in m._asdict().items()})
+    loop_state_from_numpy({k: (v._asdict() if k == "db" else np.asarray(v))
+                           for k, v in ls._asdict().items()})
+    tracking_config_from_fields(cfg._asdict())
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from . import resolve_device
+from .frontend.orb import OrbConfig
+from .frontend.pyramid import PyramidConfig
+from .slam.loop_closing import LoopState
+from .slam.map import MapState
+from .slam.place_recognition import PlaceDatabase
+from .slam.tracking import TrackingConfig
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == np.uint32:  # packed descriptor words: same bits as int32
+        a = a.view(np.int32)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def map_state_from_numpy(arrays: Mapping[str, Any], device=None) -> MapState:
+    """MapState fields (numpy arrays, the JAX dtypes) -> port MapState."""
+    dev = resolve_device(device)
+    return MapState(**{k: _tensor(arrays[k], dev) for k in MapState._fields})
+
+
+def loop_state_from_numpy(arrays: Mapping[str, Any], device=None) -> LoopState:
+    """LoopState fields, with `db` a mapping of PlaceDatabase fields."""
+    dev = resolve_device(device)
+    db = arrays["db"]
+    return LoopState(
+        db=PlaceDatabase(**{k: _tensor(db[k], dev) for k in PlaceDatabase._fields}),
+        **{k: _tensor(arrays[k], dev) for k in LoopState._fields if k != "db"},
+    )
+
+
+def _fields(x) -> dict:
+    return dict(x._asdict()) if hasattr(x, "_asdict") else dict(x)
+
+
+def tracking_config_from_fields(fields: Mapping[str, Any]) -> TrackingConfig:
+    """TrackingConfig fields (nested OrbConfig / PyramidConfig given as
+    NamedTuples or mappings) -> port TrackingConfig."""
+    fields = _fields(fields)
+    orb = _fields(fields.pop("orb", OrbConfig()))
+    orb["pyramid"] = PyramidConfig(**_fields(orb.get("pyramid", PyramidConfig())))
+    fields["dist_coef"] = tuple(float(c) for c in fields.get("dist_coef", (0.0,) * 5))
+    return TrackingConfig(orb=OrbConfig(**orb), **fields)

@@ -1,0 +1,174 @@
+"""SO(3)/SE(3) exponential and logarithm maps, batched over leading dims.
+
+Counterpart of `qsp_slam_tpu/core/lie.py` (the SE(3) half; Sim(3) and the
+quaternion helpers arrive with the loop-closing slice).  Same conventions:
+se(3) tangent xi = [v(3), w(3)], translation first; rotations are 3x3
+matrices, rigid transforms (..., 4, 4); Taylor-guarded small-angle
+branches so theta == 0 is exact and NaN-free.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+_EPS = 1e-8
+
+
+def _safe_div(num, den, small):
+    """num/den with den replaced by 1 where `small`."""
+    return num / torch.where(small, torch.ones_like(den), den)
+
+
+def hat(w: torch.Tensor) -> torch.Tensor:
+    """so(3) hat operator. w: (..., 3) -> (..., 3, 3)."""
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    z = torch.zeros_like(wx)
+    return torch.stack(
+        [
+            torch.stack([z, -wz, wy], dim=-1),
+            torch.stack([wz, z, -wx], dim=-1),
+            torch.stack([-wy, wx, z], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of hat. W: (..., 3, 3) -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
+def _so3_coeffs(theta2):
+    """(A, B, C) = sin(t)/t, (1-cos t)/t^2, (t-sin t)/t^3, Taylor-guarded."""
+    small = theta2 < _EPS
+    theta = torch.sqrt(torch.where(small, torch.ones_like(theta2), theta2))
+    sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+    A = torch.where(small, 1.0 - theta2 / 6.0, _safe_div(sin_t, theta, small))
+    B = torch.where(small, 0.5 - theta2 / 24.0, _safe_div(1.0 - cos_t, theta2, small))
+    C = torch.where(
+        small, 1.0 / 6.0 - theta2 / 120.0,
+        _safe_div(theta - sin_t, theta2 * theta, small),
+    )
+    return A, B, C
+
+
+def _eye3(like: torch.Tensor) -> torch.Tensor:
+    return torch.eye(3, dtype=like.dtype, device=like.device).expand(like.shape)
+
+
+def exp_so3(w: torch.Tensor) -> torch.Tensor:
+    """SO(3) exponential (Rodrigues). w: (..., 3) -> R: (..., 3, 3)."""
+    theta2 = torch.sum(w * w, dim=-1)
+    A, B, _ = _so3_coeffs(theta2)
+    W = hat(w)
+    W2 = W @ W
+    return _eye3(W) + A[..., None, None] * W + B[..., None, None] * W2
+
+
+def log_so3(R: torch.Tensor) -> torch.Tensor:
+    """SO(3) logarithm. R: (..., 3, 3) -> w: (..., 3).
+
+    atan2-based angle with separate near-0 and near-pi branches, as in the
+    reference implementation.
+    """
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    w_skew = vee(R - R.transpose(-1, -2))  # = 2 sin(theta) * axis
+    s2 = torch.sum(w_skew * w_skew, dim=-1)  # = 4 sin^2(theta)
+    sin_t = 0.5 * torch.sqrt(s2 + 1e-24)
+    theta = torch.atan2(sin_t, cos_t)
+    near_0 = theta < 1e-4
+    near_pi = (math.pi - theta) < 5e-3
+    generic = ~(near_0 | near_pi)
+    k_generic = _safe_div(theta, 2.0 * sin_t, ~generic)
+    k_small = 0.5 + s2 / 48.0
+    k = torch.where(generic, k_generic, k_small)
+    w_gen = k[..., None] * w_skew
+    # theta -> pi: axis magnitudes from the diagonal of S = R + R^T, signs
+    # from S's dominant column, global sign from vee(R - R^T).
+    S = R + R.transpose(-1, -2)
+    diag = torch.stack([S[..., 0, 0], S[..., 1, 1], S[..., 2, 2]], dim=-1)
+    denom_pi = torch.where(near_pi, 3.0 - trace, torch.ones_like(trace))[..., None]
+    axis2 = torch.clamp((diag + (1.0 - trace[..., None])) / denom_pi, min=0.0)
+    axis = torch.sqrt(axis2 + 1e-24)
+    jmax = torch.argmax(axis2, dim=-1)
+    onehot = F.one_hot(jmax, 3).to(R.dtype)
+    M = S - (2.0 * cos_t)[..., None, None] * torch.eye(3, dtype=R.dtype, device=R.device)
+    prods = torch.einsum("...ij,...j->...i", M, onehot)
+    sgn = torch.where(prods < 0.0, -1.0, 1.0)
+    axis_pi = axis * sgn
+    nrm = torch.linalg.vector_norm(axis_pi, dim=-1, keepdim=True)
+    axis_pi = axis_pi / torch.where(nrm == 0.0, torch.ones_like(nrm), nrm)
+    dotp = torch.sum(w_skew * axis_pi, dim=-1, keepdim=True)
+    axis_pi = axis_pi * torch.where(dotp < 0.0, -1.0, 1.0)
+    w_pi = theta[..., None] * axis_pi
+    return torch.where(near_pi[..., None], w_pi, w_gen)
+
+
+def left_jacobian_so3(w: torch.Tensor) -> torch.Tensor:
+    """SO(3) left Jacobian J_l(w): (..., 3) -> (..., 3, 3)."""
+    theta2 = torch.sum(w * w, dim=-1)
+    _, B, C = _so3_coeffs(theta2)
+    W = hat(w)
+    W2 = W @ W
+    return _eye3(W) + B[..., None, None] * W + C[..., None, None] * W2
+
+
+def inv_left_jacobian_so3(w: torch.Tensor) -> torch.Tensor:
+    """Inverse SO(3) left Jacobian."""
+    theta2 = torch.sum(w * w, dim=-1)
+    small = theta2 < _EPS
+    theta = torch.sqrt(torch.where(small, torch.ones_like(theta2), theta2))
+    half = 0.5 * theta
+    cot_term = _safe_div(half * torch.cos(half), torch.sin(half), small)
+    k = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0, _safe_div(1.0 - cot_term, theta2, small)
+    )
+    W = hat(w)
+    W2 = W @ W
+    return _eye3(W) - 0.5 * W + k[..., None, None] * W2
+
+
+def rt_to_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Assemble (..., 4, 4) from R (..., 3, 3) and t (..., 3)."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    R = R.expand(batch + (3, 3))
+    t = t.expand(batch + (3,))
+    top = torch.cat([R, t[..., :, None]], dim=-1)
+    bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
+def exp_se3(xi: torch.Tensor) -> torch.Tensor:
+    """SE(3) exponential. xi = [v, w]: (..., 6) -> T: (..., 4, 4)."""
+    v, w = xi[..., :3], xi[..., 3:6]
+    R = exp_so3(w)
+    J = left_jacobian_so3(w)
+    t = torch.einsum("...ij,...j->...i", J, v)
+    return rt_to_se3(R, t)
+
+
+def log_se3(T: torch.Tensor) -> torch.Tensor:
+    """SE(3) logarithm. T: (..., 4, 4) -> xi = [v, w]: (..., 6)."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    w = log_so3(R)
+    v = torch.einsum("...ij,...j->...i", inv_left_jacobian_so3(w), t)
+    return torch.cat([v, w], dim=-1)
+
+
+def inv_se3(T: torch.Tensor) -> torch.Tensor:
+    """Inverse of a rigid transform without generic matrix inversion."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    return rt_to_se3(Rt, -torch.einsum("...ij,...j->...i", Rt, T[..., :3, 3]))
+
+
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) transforms to (..., N, 3) points -> (..., N, 3)."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    return pts @ R.transpose(-1, -2) + t[..., None, :]

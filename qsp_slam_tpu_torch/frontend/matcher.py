@@ -1,0 +1,121 @@
+"""Descriptor matching (counterpart of `qsp_slam_tpu/frontend/matcher.py`).
+
+Distances come from kernel K2 on packed descriptors (`hamming_matrix`).
+For ±1 rows, Hamming on the packed bits equals the JAX package's
+(256 - <a, b>) // 2 exactly; the two differ only on all-zero (never
+written) map rows, which every caller's validity mask already removes.
+The projection search takes the distance matrix as an argument so tracking
+computes it once per frame and shares it between the 1x and 2x radius
+searches, whose masks are all that differ.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..ops.hamming import hamming_packed
+from .orb import pack_bits
+
+TH_LOW = 50  # reference ORBmatcher::TH_LOW
+TH_HIGH = 100  # reference ORBmatcher::TH_HIGH
+
+_BIG = 1 << 20
+_INT_MAX = 2**31 - 1
+
+
+def pack_pm(pm: torch.Tensor) -> torch.Tensor:
+    """(N, 256) ±1 int8 descriptors -> (N, 8) int32 words (bit = pm > 0)."""
+    return pack_bits(pm > 0)
+
+
+def hamming_matrix(bits_a: torch.Tensor, bits_b: torch.Tensor) -> torch.Tensor:
+    """Pairwise Hamming distances (kernel K2). (A, 8), (B, 8) -> (A, B) int32."""
+    return hamming_packed(bits_a, bits_b)
+
+
+class MatchResult(NamedTuple):
+    idx: torch.Tensor  # (A,) int32 — best column per row (-1 if none)
+    dist: torch.Tensor  # (A,) int32 — its Hamming distance
+    valid: torch.Tensor  # (A,) bool
+
+
+def masked_best_match(
+    dist: torch.Tensor,
+    mask: torch.Tensor,
+    max_dist: int = TH_LOW,
+    ratio: float = 1.0,
+) -> MatchResult:
+    """Best match per row with an optional Lowe ratio test against the
+    second best.  dist (A, B) int32; mask (A, B) bool candidate gate."""
+    d = torch.where(mask, dist, _BIG)
+    best = torch.argmin(d, dim=1)  # first minimum, as jnp.argmin
+    dbest = torch.gather(d, 1, best[:, None])[:, 0]
+    d2 = d.scatter(1, best[:, None], _BIG)
+    dsecond = torch.min(d2, dim=1).values
+    ok = (dbest <= max_dist) & (dbest.to(torch.float32) <= ratio * dsecond.to(torch.float32))
+    return MatchResult(
+        idx=torch.where(ok, best.to(torch.int32), -1),
+        dist=dbest,
+        valid=ok,
+    )
+
+
+def projection_mask(
+    proj_uv: torch.Tensor,
+    proj_valid: torch.Tensor,
+    proj_octave: torch.Tensor,
+    feat_xy: torch.Tensor,
+    feat_valid: torch.Tensor,
+    feat_octave: torch.Tensor,
+    radius_per_row: torch.Tensor,
+    octave_window: int = 1,
+) -> torch.Tensor:
+    """(A, B) candidate gate of the projection search: inside the row's
+    pixel radius and octave window, both sides valid."""
+    dx = proj_uv[:, None, 0] - feat_xy[None, :, 0]
+    dy = proj_uv[:, None, 1] - feat_xy[None, :, 1]
+    window = (dx * dx + dy * dy) <= (radius_per_row[:, None] ** 2)
+    oct_ok = torch.abs(proj_octave[:, None] - feat_octave[None, :]) <= octave_window
+    return window & oct_ok & proj_valid[:, None] & feat_valid[None, :]
+
+
+def search_by_projection(
+    proj_uv: torch.Tensor,
+    proj_valid: torch.Tensor,
+    proj_octave: torch.Tensor,
+    feat_xy: torch.Tensor,
+    feat_valid: torch.Tensor,
+    feat_octave: torch.Tensor,
+    radius_per_row: torch.Tensor,
+    dist: torch.Tensor,
+    max_dist: int = TH_HIGH,
+    octave_window: int = 1,
+    ratio: float = 0.9,
+) -> MatchResult:
+    """Windowed projection search: each projected map point matches the
+    keypoints inside its pixel radius and octave window.  `dist` is the
+    (points, features) Hamming matrix from `hamming_matrix`."""
+    mask = projection_mask(
+        proj_uv, proj_valid, proj_octave, feat_xy, feat_valid, feat_octave,
+        radius_per_row, octave_window,
+    )
+    return masked_best_match(dist, mask, max_dist=max_dist, ratio=ratio)
+
+
+def _segment_min(vals: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    out = torch.full((num_segments,), _INT_MAX, dtype=vals.dtype, device=vals.device)
+    return out.scatter_reduce(0, seg.long(), vals, "amin")
+
+
+def resolve_duplicates(match: MatchResult, num_targets: int) -> MatchResult:
+    """Each target column keeps at most one row: the lowest distance, ties
+    to the lowest row index."""
+    tgt = torch.where(match.valid, match.idx, num_targets)
+    best_per_tgt = _segment_min(match.dist, tgt, num_targets + 1)
+    keep = match.valid & (match.dist <= best_per_tgt[tgt.long()])
+    rows = torch.arange(match.idx.shape[0], dtype=torch.int32, device=match.idx.device)
+    first_row = _segment_min(torch.where(keep, rows, 1 << 30), tgt, num_targets + 1)
+    keep = keep & (rows == first_row[tgt.long()])
+    return MatchResult(idx=torch.where(keep, match.idx, -1), dist=match.dist, valid=keep)

@@ -1,0 +1,259 @@
+"""System facade: the single-controller RGB-D SLAM loop (counterpart of
+`qsp_slam_tpu/slam/system.py`, point-only RGB-D tracking).
+
+Per frame: features + tracking, a host-side consistency gate and keyframe
+policy; on a keyframe: insertion, covisibility local BA, point fusion,
+periodic keyframe culling and the keyframe snapshot.  Capabilities of
+later port slices raise `NotImplementedError` naming the slice (see
+ROADMAP.md queue A).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..core.camera import backproject
+from . import map as mapmod
+from .local_mapping import cull_keyframes, fuse_map_points, local_ba_step, window_edge_budget
+from .loop_closing import LoopState, empty_loop_state, grow_loop_state, snapshot_keyframe
+from .map import MapState
+from .tracking import (
+    FrameData,
+    TrackingConfig,
+    TrackResult,
+    keyframe_insertion,
+    need_keyframe,
+    process_and_track,
+    process_frame,
+)
+
+_LATER = {
+    "enable_objects": "slice 6 (quadric objects)",
+    "enable_loop_closing": "slice 4 (loop closing)",
+    "detector": "slice 8 (learned detectors)",
+    "shape_prior": "slice 7 (DeepSDF shapes)",
+    "mesh": "slice 9 (distribution)",
+}
+
+
+def _to_device(x, device: torch.device) -> torch.Tensor:
+    """Camera input (array or tensor) -> tensor on `device`; uint16 depth
+    crosses as its int16 bit pattern and is widened on the device."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    x = np.ascontiguousarray(x)
+    if x.dtype == np.uint16:
+        t = torch.from_numpy(x.view(np.int16)).to(device)
+        return t.to(torch.int32) & 0xFFFF
+    return torch.from_numpy(x).to(device)
+
+
+@dataclass
+class SlamSystem:
+    cfg: TrackingConfig
+    kmax: int = 64
+    nmax: int = 8192
+    emax: int = 65536
+    ba_window: int = 8
+    enable_objects: bool = False
+    enable_loop_closing: bool = False
+    detector: Optional[tuple] = None
+    shape_prior: Optional[tuple] = None
+    mesh: Optional[object] = None
+    device: Optional[str] = None
+    map_state: MapState = field(init=False)
+    loop_state: LoopState = field(init=False)
+    Tcw: np.ndarray = field(init=False)
+    velocity: np.ndarray = field(init=False)
+    initialized: bool = False
+    frames_since_kf: int = 0
+    inliers_at_last_kf: int = 0
+    trajectory: list = field(default_factory=list)
+    stats: dict = field(default_factory=lambda: {"frames": 0, "keyframes": 0,
+                                                 "track_ms": [], "ba_ms": []})
+
+    def __post_init__(self):
+        for name, where in _LATER.items():
+            if getattr(self, name):
+                raise NotImplementedError(f"{name} arrives with ROADMAP {where}")
+        self.device = resolve_device(self.device)
+        self.map_state = mapmod.empty_map(self.kmax, self.nmax, self.emax, self.device)
+        self.loop_state = empty_loop_state(self.kmax, device=self.device)
+        self.Tcw = np.eye(4, dtype=np.float32)
+        self.velocity = np.eye(4, dtype=np.float32)
+        self._kf_fresh = False
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    def track_rgbd(self, gray, depth, detections=None) -> np.ndarray:
+        """Process one RGB-D frame (gray (H, W) uint8/f32, depth (H, W)
+        uint16 PNG units or f32 meters); returns the estimated T_cw."""
+        if detections is not None:
+            raise NotImplementedError("detections arrive with ROADMAP " + _LATER["enable_objects"])
+        self._ensure_capacity()
+        gray = _to_device(gray, self.device)
+        depth = _to_device(depth, self.device)
+        if depth.dtype == torch.int32:  # widened uint16
+            depth = depth.to(torch.float32) / self.cfg.depth_png_scale
+        if not self.initialized:
+            self._initialize(process_frame(gray, depth, self.cfg))
+            self.trajectory.append(self.Tcw.copy())
+            return self.Tcw
+        t0 = time.perf_counter()
+        Tcw_pred = self.velocity @ self.Tcw
+        frame, res = process_and_track(
+            gray, depth, self.map_state, torch.from_numpy(Tcw_pred).to(self.device), self.cfg
+        )
+        return self._post_track(frame, res, Tcw_pred, t0)
+
+    def _post_track(self, frame: FrameData, res: TrackResult, Tcw_pred, t0) -> np.ndarray:
+        """Host policy after tracking: one device->host transfer, the
+        consistency gate, velocity update and keyframe trigger."""
+        cfg = self.cfg
+        got = torch.cat([
+            res.Tcw.reshape(16).to(torch.float64),
+            torch.stack([res.num_inliers, res.pred_dev_t, res.pred_dev_r,
+                         res.tracked_close, res.untracked_close]).to(torch.float64),
+        ]).cpu().numpy()
+        Tcw_new = got[:16].reshape(4, 4).astype(np.float32)
+        num_inliers, dev_t, dev_r, n_close_trk, n_close_new = got[16:]
+        num_inliers = int(num_inliers)
+        self.stats["track_ms"].append((time.perf_counter() - t0) * 1e3)
+        # A solution far from the prediction is a repetitive-texture
+        # mismatch, not tracking.
+        consistent = dev_t < 0.5 and dev_r < 0.5
+        self.stats.setdefault("inliers", []).append(num_inliers)
+        if not (num_inliers >= cfg.min_track_inliers and consistent):
+            raise NotImplementedError(
+                "tracking lost: reference-keyframe tracking, relocalization and "
+                "the early-map reset arrive with ROADMAP slice 2"
+            )
+        self.velocity = (Tcw_new @ np.linalg.inv(self.Tcw)).astype(np.float32)
+        self.Tcw = Tcw_new
+        self.frames_since_kf += 1
+        if self._kf_fresh:
+            # First track against the replenished map sets the reference
+            # count for the ratio trigger.
+            self.inliers_at_last_kf = max(self.inliers_at_last_kf, num_inliers)
+            self._kf_fresh = False
+        if need_keyframe(
+            self.frames_since_kf, num_inliers, self.inliers_at_last_kf, cfg,
+            tracked_close=int(n_close_trk), untracked_close=int(n_close_new),
+        ):
+            self._insert_keyframe(frame, res)
+        self.stats["frames"] += 1
+        self.trajectory.append(self.Tcw.copy())
+        return self.Tcw
+
+    # ------------------------------------------------------------------
+    def _ensure_capacity(self, reserve_kfs: int = 1):
+        """Grow or compact the stores at frame start (ids must stay stable
+        between a frame's tracking and its keyframe insertion): a keyframe
+        adds at most 1 keyframe, F points and 2F edges."""
+        m = self.map_state
+        num_kfs, num_pts, num_obs = (
+            int(v) for v in torch.stack([m.num_kfs, m.num_pts, m.num_obs]).cpu()
+        )
+        F = self.cfg.orb.num_features
+        ev = self.stats.setdefault("capacity_events", [])
+        if num_kfs + reserve_kfs > self.kmax:
+            self.kmax *= 2
+            self.map_state = m = mapmod.grow_map(m, kmax=self.kmax)
+            self.loop_state = grow_loop_state(self.loop_state, self.kmax)
+            ev.append(("grow_kfs", self.kmax))
+        if num_pts + reserve_kfs * F > self.nmax:
+            dead = num_pts - int(torch.sum(m.pt_valid))
+            if dead >= F:
+                self.map_state = m = mapmod.compact_points(m)
+                ev.append(("compact_points", dead))
+            else:
+                self.nmax *= 2
+                self.map_state = m = mapmod.grow_map(m, nmax=self.nmax)
+                ev.append(("grow_points", self.nmax))
+        if num_obs + reserve_kfs * 2 * F > self.emax:
+            dead = num_obs - int(torch.sum(m.ob_valid))
+            if dead >= 2 * F:
+                self.map_state = mapmod.compact_edges(m)
+                ev.append(("compact_edges", dead))
+            else:
+                self.emax *= 2
+                self.map_state = mapmod.grow_map(m, emax=self.emax)
+                ev.append(("grow_edges", self.emax))
+
+    # ------------------------------------------------------------------
+    def _initialize(self, frame: FrameData):
+        """The first frame becomes keyframe 0 at the origin, with a map
+        point for every valid-depth feature (up to the per-keyframe cap)."""
+        dev = self.device
+        dummy = TrackResult(
+            Tcw=torch.from_numpy(self.Tcw).to(dev),
+            match_pt=torch.full((self.nmax,), -1, dtype=torch.int32, device=dev),
+            match_inlier=torch.zeros(self.nmax, dtype=torch.bool, device=dev),
+            **{k: torch.zeros((), device=dev) for k in TrackResult._fields[3:]},
+        )
+        self.map_state = keyframe_insertion(
+            self.map_state, torch.from_numpy(self.Tcw).to(dev), frame, dummy, self.cfg
+        )
+        self.initialized = True
+        self.inliers_at_last_kf = int(torch.sum(frame.depth > 0))
+        self.frames_since_kf = 0
+        self.stats["keyframes"] += 1
+        self.stats.setdefault("kf_frames", []).append(len(self.trajectory))
+        self._snapshot(frame)
+
+    def _insert_keyframe(self, frame: FrameData, res: TrackResult):
+        self.map_state = keyframe_insertion(
+            self.map_state, torch.from_numpy(self.Tcw).to(self.device), frame, res, self.cfg
+        )
+        t0 = time.perf_counter()
+        budget = window_edge_budget(self.ba_window, self.cfg, self.emax)
+        self.map_state = local_ba_step(self.map_state, self.cfg, self.ba_window, budget)
+        self.map_state = fuse_map_points(self.map_state)
+        if self.stats["keyframes"] % 4 == 0:
+            self.map_state = cull_keyframes(self.map_state)
+        self._sync()
+        self.stats["ba_ms"].append((time.perf_counter() - t0) * 1e3)
+        # Adopt the refined pose of the newest keyframe.
+        kf_id = int(self.map_state.num_kfs) - 1
+        self.Tcw = self.map_state.kf_Tcw[kf_id].cpu().numpy()
+        self.frames_since_kf = 0
+        # Provisional reference count (measured before this keyframe's new
+        # points existed); the first track after insertion refreshes it.
+        self.inliers_at_last_kf = int(res.num_inliers)
+        self._kf_fresh = True
+        self.stats["keyframes"] += 1
+        self.stats.setdefault("kf_frames", []).append(len(self.trajectory))
+        self._snapshot(frame)
+
+    def _snapshot(self, frame: FrameData):
+        """Every keyframe stores its snapshot and place signature."""
+        pts_cam = backproject(frame.feats.xy, frame.depth, self.cfg.intr)
+        self.loop_state = snapshot_keyframe(
+            self.loop_state, frame.feats.desc_pm, frame.feats.valid,
+            pts_cam, frame.depth > 0.0, frame.feats.xy, frame.feats.octave,
+        )
+
+    # ------------------------------------------------------------------
+    def summary(self) -> dict:
+        tm = self.stats["track_ms"]
+        bm = self.stats["ba_ms"]
+        return {
+            "frames": self.stats["frames"],
+            "keyframes": self.stats["keyframes"],
+            "track_fps": round(1000.0 / float(np.median(tm)), 2) if tm else None,
+            "num_points": int(self.map_state.num_pts),
+            "num_obs": int(self.map_state.num_obs),
+            "num_objects": 0,
+            "loops_closed": 0,
+            "track_ms_median": float(np.median(tm)) if tm else None,
+            "ba_ms_median": float(np.median(bm)) if bm else None,
+        }

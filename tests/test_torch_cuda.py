@@ -1,0 +1,91 @@
+"""The port's hand-written CUDA kernels on the card, against their plain
+PyTorch versions.  Every test here needs an NVIDIA GPU and skips without
+one; this file imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: K1 identical keep masks, scores rtol 1e-5 / atol 1e-4; K2
+exact; a short tracking run on the card keeps every camera centre within
+1 cm of the same run on the CPU.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from qsp_slam_tpu_torch.data.render import make_room, orbit_trajectory, render_frame
+from qsp_slam_tpu_torch.frontend.matcher import pack_pm
+from qsp_slam_tpu_torch.frontend.orb import OrbConfig
+from qsp_slam_tpu_torch.frontend.pyramid import PyramidConfig, build_pyramid
+from qsp_slam_tpu_torch.ops.fast_nms import fast_score_nms, fast_score_nms_plain
+from qsp_slam_tpu_torch.ops.hamming import hamming_packed, hamming_packed_plain
+from qsp_slam_tpu_torch.slam.system import SlamSystem
+from qsp_slam_tpu_torch.slam.tracking import TrackingConfig
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def test_fast_nms_kernel_matches_plain(gen):
+    cfg = TrackingConfig()
+    g, _ = render_frame(make_room(device="cuda"), orbit_trajectory(4)[3], cfg.intr)
+    images = build_pyramid(torch.round(g).clamp(0, 255), PyramidConfig())
+    images += [torch.randint(0, 256, s, generator=gen, device="cuda").float()
+               for s in ((8, 8), (7, 300), (37, 53), (250, 33))]
+    before = fast_score_nms.launches
+    for img in images:
+        for t in (20.0, 7.0):
+            got, ref = fast_score_nms(img, t), fast_score_nms_plain(img, t)
+            torch.cuda.synchronize()
+            assert torch.equal(got > 0, ref > 0), (tuple(img.shape), t)
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
+    assert fast_score_nms.launches == before + 2 * len(images)
+
+
+def test_hamming_kernel_matches_plain(gen):
+    for A, B in ((8192, 4000), (2048, 2048), (70, 130), (1, 1), (513, 127)):
+        a = torch.randint(-2**31, 2**31, (A, 8), generator=gen, device="cuda", dtype=torch.int64)
+        b = torch.randint(-2**31, 2**31, (B, 8), generator=gen, device="cuda", dtype=torch.int64)
+        a, b = a.to(torch.int32), b.to(torch.int32)
+        got = hamming_packed(a, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, hamming_packed_plain(a, b)), (A, B)
+
+
+def test_hamming_kernel_equals_pm_product(gen):
+    pa = torch.where(torch.rand(300, 256, generator=gen, device="cuda") < 0.5, 1, -1).to(torch.int8)
+    pb = torch.where(torch.rand(200, 256, generator=gen, device="cuda") < 0.5, 1, -1).to(torch.int8)
+    ref = ((256 - pa.float() @ pb.float().T) // 2).to(torch.int32)
+    assert torch.equal(hamming_packed(pack_pm(pa), pack_pm(pb)), ref)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(gen):
+    img = torch.rand(64, 64, generator=gen, device="cuda")
+    with pytest.raises(ValueError):
+        fast_score_nms(img.t(), 20.0)
+    a = torch.zeros(16, 8, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        hamming_packed(a, a.cpu())
+
+
+def test_short_run_matches_cpu(gen):
+    cfg = TrackingConfig(orb=OrbConfig(num_features=500))
+    room = make_room(device="cpu")
+    Tcw_gt = orbit_trajectory(8)
+    frames = [tuple(x.numpy() for x in render_frame(room, Tcw_gt[i], cfg.intr)) for i in range(8)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        s = SlamSystem(cfg, kmax=16, nmax=2048, emax=16384, ba_window=6, device=dev)
+        for f in frames:
+            s.track_rgbd(*f)
+        runs[dev] = s
+    p = {d: -np.einsum("kji,kj->ki", np.stack(s.trajectory)[:, :3, :3].astype(np.float64),
+                       np.stack(s.trajectory)[:, :3, 3].astype(np.float64)) for d, s in runs.items()}
+    assert np.linalg.norm(p["cuda"] - p["cpu"], axis=1).max() < 0.01
+    assert runs["cuda"].stats["kf_frames"] == runs["cpu"].stats["kf_frames"]
