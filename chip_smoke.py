@@ -6,24 +6,30 @@
 Phases (any failure exits non-zero and prints no result line):
   1. card name and power limit (nvidia-smi); build every kernel from
      qsp_slam_tpu_torch/csrc with nvcc, one process per source in parallel;
-  2. K1 (FAST score + NMS) against its plain PyTorch version on the card:
-     all 8 pyramid levels of a rendered frame at t = 20 and 7, plus 8x8 and
-     37x53 images; identical keep masks, scores within rtol 1e-5 / atol 1e-4;
+  2. K1 (FAST score + NMS) against its plain PyTorch version on the card,
+     bitwise: one `fast_score_nms_pyramid` call per frame's 8-level pyramid
+     at t = 20 and 7 (two frames), one call over the odd shapes 8x8, 7x300,
+     37x53 and 250x33 mixed with a level, and the single-image entry on
+     every one of those images at both thresholds;
   3. K2 (packed Hamming) against its plain version at (8192, 4000),
-     (2048, 2048) and (70, 130): exactly equal;
+     (2048, 2048), (70, 130), (1, 1), (513, 127), (129, 4001) and
+     (4000, 3), with rows planted at distance 0 and 256: exactly equal;
   4. the main path: `SlamSystem.track_rgbd` on 60 rendered frames
      (uint8 gray, uint16 depth at scale 5000) with 4000 features at
      640x480, default capacities, objects and loop closing off.  Launch
      counters are zeroed just before and read just after; K1 must launch
-     16 times per frame and K2 at least once; ATE < 0.05 m and >= 2
-     keyframes;
+     once per frame and K2 at least once; ATE < 0.05 m and >= 2 keyframes;
   5. the same path on 10 frames at 500 features on the card and, as the
      reference, on the CPU (plain kernel versions): camera centres agree
      within 1 cm and the keyframes are the same;
   6. per-kernel times (CUDA events) beside the plain version, the library
-     yardstick where one exists and the bound.
-Then a `{"kernels": [...]}` line, the card line again, and as the last line
-`{"ok": true, "device": {...}}`.
+     yardsticks where they exist and the bound: K1 as one call per frame,
+     K2 at (8192, 4000) and (2048, 2048).
+With `--profile DIR`: a torch.profiler table of main-path frames 12-19 in
+DIR, the device's busy share of that window, each kernel's device time per
+launch there, and each kernel's device time per call alone at the phase-6
+shapes.  Then a `{"kernels": [...]}` line, the card line again, and as the
+last line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -45,14 +51,21 @@ from qsp_slam_tpu_torch.frontend.matcher import pack_pm  # noqa: E402
 from qsp_slam_tpu_torch.frontend.orb import OrbConfig  # noqa: E402
 from qsp_slam_tpu_torch.frontend.pyramid import build_pyramid  # noqa: E402
 from qsp_slam_tpu_torch.ops import build  # noqa: E402
-from qsp_slam_tpu_torch.ops.fast_nms import fast_score_nms, fast_score_nms_plain  # noqa: E402
+from qsp_slam_tpu_torch.ops.fast_nms import (  # noqa: E402
+    fast_score_nms,
+    fast_score_nms_plain,
+    fast_score_nms_pyramid,
+    fast_score_nms_pyramid_plain,
+)
 from qsp_slam_tpu_torch.ops.hamming import hamming_packed, hamming_packed_plain  # noqa: E402
 from qsp_slam_tpu_torch.slam.system import SlamSystem  # noqa: E402
 from qsp_slam_tpu_torch.slam.tracking import TrackingConfig  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM peak outside the tensor cores
-K1_OPS_PER_PX = 140  # 16 ring taps x ~7 ops + arc test + 3x3 max
+K1_OPS_PER_PX = 140  # per (pixel, threshold): 16 ring taps x ~7 ops + arc test + 3x3 max
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
+K2_SHAPES = ((8192, 4000), (2048, 2048), (70, 130), (1, 1), (513, 127), (129, 4001), (4000, 3))
 FRAMES = 60  # main-path frames; the first 10 are warm-up
 
 
@@ -132,18 +145,40 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     # 2. K1 against its plain version ----------------------------------
+    ths = (cfg.orb.fast_threshold, cfg.orb.fast_threshold_min)
     levels = build_pyramid(torch.from_numpy(frames[0][0]).cuda().float(), cfg.orb.pyramid)
-    extra = [torch.randint(0, 256, s, generator=gen, device="cuda").float() for s in ((8, 8), (37, 53))]
-    k1_err = 0.0
-    for img in levels + extra:
-        for t in (cfg.orb.fast_threshold, cfg.orb.fast_threshold_min):
-            got, ref = fast_score_nms(img, t), fast_score_nms_plain(img, t)
+    odd = [torch.randint(0, 256, s, generator=gen, device="cuda").float()
+           for s in ((8, 8), (7, 300), (37, 53), (250, 33))]
+    calls = [levels, build_pyramid(torch.from_numpy(frames[FRAMES // 2][0]).cuda().float(), cfg.orb.pyramid),
+             odd[:2] + [levels[6]] + odd[2:]]
+    k1_err, n_maps = 0.0, 0
+
+    def k1_check(got, ref, what):
+        nonlocal k1_err, n_maps
+        if not torch.equal(got > 0, ref > 0):
+            raise AssertionError(f"K1 keep mask differs: {what}")
+        k1_err = max(k1_err, float((got - ref).abs().max()))
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K1 differs from plain: {what}")
+        n_maps += 1
+
+    for imgs in calls:
+        before = fast_score_nms_pyramid.launches
+        got = fast_score_nms_pyramid(imgs, ths)
+        torch.cuda.synchronize()
+        if fast_score_nms_pyramid.launches != before + 1:
+            raise AssertionError("fast_score_nms_pyramid did not launch exactly once")
+        for img, maps, refs in zip(imgs, got, fast_score_nms_pyramid_plain(imgs, ths)):
+            for t, m, r in zip(ths, maps, refs):
+                k1_check(m, r, f"pyramid call, {tuple(img.shape)} t={t}")
+    for img in levels + odd:
+        for t in ths:
+            got = fast_score_nms(img, t)
             torch.cuda.synchronize()
-            if not torch.equal(got > 0, ref > 0):
-                raise AssertionError(f"K1 keep mask differs at {tuple(img.shape)} t={t}")
-            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
-            k1_err = max(k1_err, float((got - ref).abs().max()))
-    log(f"phase 2 K1 vs plain: {len(levels) + len(extra)} images x 2 thresholds, masks equal, max abs err {k1_err}")
+            k1_check(got, fast_score_nms_plain(img, t), f"single image {tuple(img.shape)} t={t}")
+    log(f"phase 2 K1 vs plain: {len(calls)} pyramid calls (two frames' 8 levels, 4 odd shapes + a level) "
+        f"and {len(levels) + len(odd)} single images, x 2 thresholds; {n_maps} maps bitwise equal, "
+        f"max abs err {k1_err}")
 
     # 3. K2 against its plain version ----------------------------------
     def words(n):
@@ -151,20 +186,28 @@ def main() -> int:
                              dtype=torch.int64).to(torch.int32)
 
     k2_in = {}
-    for A, B in ((8192, 4000), (2048, 2048), (70, 130)):
+    for A, B in K2_SHAPES:
         a, b = words(A), words(B)
+        # Rows 0, 2, ... of A copy a B row (distance 0), rows 1, 3, ... its
+        # complement (distance 256), in the first half; the rest stay random.
+        rows = torch.arange((A + 1) // 2, device="cuda")
+        even = rows % 2 == 0
+        a[rows] = torch.where(even[:, None], b[rows % B], ~b[rows % B])
         k2_in[(A, B)] = (a, b)
         got, ref = hamming_packed(a, b), hamming_packed_plain(a, b)
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
             raise AssertionError(f"K2 differs from plain at ({A}, {B})")
-    log("phase 3 K2 vs plain: (8192, 4000), (2048, 2048), (70, 130) exactly equal")
+        if not torch.equal(got[rows, rows % B], torch.where(even, 0, 256).to(torch.int32)):
+            raise AssertionError(f"K2 at ({A}, {B}) misses the planted distances 0 and 256")
+    log(f"phase 3 K2 vs plain: {', '.join(map(str, K2_SHAPES))} exactly equal, "
+        "planted rows at distance 0 and 256 included")
 
     # 4. main path at full width --------------------------------------
-    fast_score_nms.launches = 0
+    fast_score_nms_pyramid.launches = 0
     hamming_packed.launches = 0
     sysm, wall = run_slam(cfg, frames, "cuda")
-    launches = {"fast_nms": fast_score_nms.launches, "hamming": hamming_packed.launches}
+    launches = {"fast_nms": fast_score_nms_pyramid.launches, "hamming": hamming_packed.launches}
     est = np.stack(sysm.trajectory)
     ate = ate_rmse(est, Tcw_gt[: len(est)])
     s = sysm.summary()
@@ -174,7 +217,7 @@ def main() -> int:
         f"(track {s['track_ms_median']:.3f}, local BA + fusion per keyframe {s['ba_ms_median']:.3f})")
     if not np.isfinite(est).all() or ate >= 0.05 or s["keyframes"] < 2:
         raise AssertionError(f"main path failed: ATE {ate}, keyframes {s['keyframes']}")
-    if launches["fast_nms"] != 16 * len(frames) or launches["hamming"] < 1:
+    if launches["fast_nms"] != len(frames) or launches["hamming"] < 1:
         raise AssertionError(f"kernel launches off the main path: {launches}")
 
     # 5. small input: card against the CPU reference --------------------
@@ -189,50 +232,68 @@ def main() -> int:
         raise AssertionError("card and CPU runs disagree")
 
     # 6. kernel times --------------------------------------------------
-    ths = (cfg.orb.fast_threshold, cfg.orb.fast_threshold_min)
+    # K1: one call per frame, 8 levels x 2 thresholds.  Bound: each pyramid
+    # pixel read once (4 B) and written once per threshold (4 B each).
+    px = sum(im.numel() for im in levels)
+    k1_s = {"bytes": px * 4 * (1 + len(ths)) / HBM_BYTES_PER_S,
+            "operations": px * len(ths) * K1_OPS_PER_PX / FP32_OPS_PER_S}
 
-    def k1_frame(fn):
-        return lambda: [fn(im, t) for im in levels for t in ths]
+    # K2: the (A, B) int32 write against the +-1 int8 product on the tensor
+    # cores; yardsticks: the same product as one f32 matmul and as one int8
+    # matmul (the JAX matcher's formulation), neither called by the port.
+    def k2_bound(A, B):
+        return {"bytes": ((A + B) * 32 + A * B * 4) / HBM_BYTES_PER_S,
+                "operations": 2 * A * B * 256 / INT8_OPS_PER_S}
 
-    px = sum(im.numel() for im in levels) * len(ths)
-    k1_bound = max(px * 8 / HBM_BYTES_PER_S, px * K1_OPS_PER_PX / FP32_OPS_PER_S) * 1e3
-    a, b = k2_in[(8192, 4000)]
-    pm_a = torch.where(torch.rand(8192, 256, generator=gen, device="cuda") < 0.5, 1, -1).to(torch.int8)
-    pm_b = torch.where(torch.rand(4000, 256, generator=gen, device="cuda") < 0.5, 1, -1).to(torch.int8)
-    if not torch.equal(hamming_packed(pack_pm(pm_a), pack_pm(pm_b)),
-                       ((256 - pm_a.float() @ pm_b.float().T) // 2).to(torch.int32)):
-        raise AssertionError("K2 differs from the ±1 matmul yardstick")
-    k2_bytes = (8192 + 4000) * 32 + 8192 * 4000 * 4
-    k2_ops = 8192 * 4000 * 8 * 3
+    def pm_rows(n):
+        return torch.where(torch.rand(n, 256, generator=gen, device="cuda") < 0.5, 1, -1).to(torch.int8)
+
+    k2_time = {}
+    for A, B in ((8192, 4000), (2048, 2048)):
+        pm_a, pm_b = pm_rows(A), pm_rows(B)
+        f32 = lambda: (256 - pm_a.float() @ pm_b.float().T) // 2  # noqa: E731
+        int8 = lambda: (256 - torch._int_mm(pm_a, pm_b.T)) // 2  # noqa: E731
+        got = hamming_packed(pack_pm(pm_a), pack_pm(pm_b))
+        if not (torch.equal(got, f32().to(torch.int32)) and torch.equal(got, int8())):
+            raise AssertionError(f"K2 differs from the ±1 matmul yardsticks at ({A}, {B})")
+        a, b = k2_in[(A, B)]
+        bound = k2_bound(A, B)
+        k2_time[(A, B)] = {
+            "ms": cuda_ms(lambda: hamming_packed(a, b), 100),
+            "plain_ms": cuda_ms(lambda: hamming_packed_plain(a, b), 5),
+            "bound_ms": max(bound.values()) * 1e3,
+            "bound_by": max(bound, key=bound.get),
+            "library_ms": cuda_ms(f32, 20),
+            "library_int8_ms": cuda_ms(int8, 50),
+        }
     kernels = [
         {
             "name": "fast_score_nms", "route": "cuda",
             "source": "qsp_slam_tpu_torch/csrc/fast_nms.cu",
             "replaces": "qsp_slam_tpu/ops/fast_pallas.py:129",
             "launches": launches["fast_nms"], "max_abs_err": k1_err,
-            "ms": cuda_ms(k1_frame(fast_score_nms), 50),
-            "plain_ms": cuda_ms(k1_frame(fast_score_nms_plain), 10),
-            "bound_ms": k1_bound,
-            "bound_by": "bytes" if px * 8 / HBM_BYTES_PER_S >= px * K1_OPS_PER_PX / FP32_OPS_PER_S else "operations",
+            "ms": cuda_ms(lambda: fast_score_nms_pyramid(levels, ths), 200),
+            "plain_ms": cuda_ms(lambda: fast_score_nms_pyramid_plain(levels, ths), 10),
+            "bound_ms": max(k1_s.values()) * 1e3,
+            "bound_by": max(k1_s, key=k1_s.get),
             "library_ms": None,
-            "unit": "one frame: 8 pyramid levels x 2 thresholds (16 launches)",
+            "unit": "one frame: one launch over 8 pyramid levels x 2 thresholds",
         },
         {
             "name": "hamming_packed", "route": "cuda",
             "source": "qsp_slam_tpu_torch/csrc/hamming.cu",
             "replaces": "qsp_slam_tpu/ops/hamming.py:48",
             "launches": launches["hamming"], "max_abs_err": 0.0,
-            "ms": cuda_ms(lambda: hamming_packed(a, b), 50),
-            "plain_ms": cuda_ms(lambda: hamming_packed_plain(a, b), 5),
-            "bound_ms": max(k2_bytes / HBM_BYTES_PER_S, k2_ops / FP32_OPS_PER_S) * 1e3,
-            "bound_by": "bytes" if k2_bytes / HBM_BYTES_PER_S >= k2_ops / FP32_OPS_PER_S else "operations",
-            "library_ms": cuda_ms(lambda: (256 - pm_a.float() @ pm_b.float().T) // 2, 20),
-            "unit": "one call at (8192 map points, 4000 features)",
+            **k2_time[(8192, 4000)],
+            "unit": "one call at (8192 map points, 4000 features); library_ms: f32 matmul, "
+                    "library_int8_ms: int8 matmul, both of the ±1 rows",
+            "at_2048x2048": k2_time[(2048, 2048)],
         },
     ]
     for k in kernels:
         log(f"phase 6 {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
             f"library {k['library_ms']}, bound {k['bound_ms']:.4f} by {k['bound_by']})")
+    log(f"phase 6 hamming_packed at (2048, 2048): {k2_time[(2048, 2048)]}")
 
     if args.profile:
         from torch.autograd import DeviceType
@@ -261,10 +322,39 @@ def main() -> int:
         log(f"profile of frames 12-19 (written to {out / 'profile.txt'}): window {window_us / 1e3:.1f} ms, "
             f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / window_us:.1f}%), "
             f"keyframes in window {sysm2.stats['keyframes'] - kf_before}")
+        kernel_names = ("fast_score_nms_pyramid_kernel", "hamming_mma_kernel")
         for e in events:
-            for name in ("fast_score_nms_kernel", "hamming_kernel"):
+            for name in kernel_names:
                 if name in e.key and self_dev_us(e) > 0:
                     log(f"  device time of {name}: {e.count} launches, {self_dev_us(e) / e.count:.2f} us each")
+
+        # Each kernel alone, `reps` back-to-back calls per shape in one
+        # profiled window: device time per call, which the events of phase 6
+        # cannot show where the host takes longer per call than the card.
+        # The profiler can drop the first kernel records of a window, so a
+        # warm-up block leads and each shape takes its records from the end
+        # of the window, in launch order.
+        reps = 50
+        alone = [("K1, one frame (8 levels x 2 thresholds)", kernel_names[0],
+                  lambda: fast_score_nms_pyramid(levels, ths))]
+        for A, B in ((8192, 4000), (2048, 2048)):
+            alone.append((f"K2 at ({A}, {B})", kernel_names[1],
+                          lambda a=k2_in[(A, B)][0], b=k2_in[(A, B)][1]: hamming_packed(a, b)))
+        with profile(activities=[ProfilerActivity.CUDA]) as pr:
+            for fn in [alone[0][2]] * 10 + [fn for _, _, fn in alone for _ in range(reps)]:
+                fn()
+            torch.cuda.synchronize()
+        launched = sorted((e for e in pr.events() if e.device_type == DeviceType.CUDA),
+                          key=lambda e: e.time_range.start)
+        seen = {n: [e.time_range.elapsed_us() for e in launched if n in e.name] for n in kernel_names}
+        per_call = {}
+        for what, name, _ in reversed(alone):
+            per_call[what], seen[name] = seen[name][-reps:], seen[name][:-reps]
+        for what, _, _ in alone:
+            us = per_call[what]
+            log(f"  device time per call, {what}: " + (
+                f"{sum(us) / reps:.2f} us" if len(us) == reps
+                else f"not measured (the profiler kept {len(us)} of {reps} launches)"))
 
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

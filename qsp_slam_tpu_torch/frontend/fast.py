@@ -1,11 +1,14 @@
 """FAST-9/16 corners and spatially-distributed top-K selection
 (counterpart of `qsp_slam_tpu/frontend/fast.py`).
 
-`detect_keypoints` gets its NMS'd score map from the hand-written CUDA
-kernel (`ops.fast_nms.fast_score_nms`); `fast_score` + `nms3x3` below are
-that kernel's plain PyTorch version.  Top-k selections use a stable
-descending sort, so ties resolve to the lower index exactly as
-`jax.lax.top_k` does (FAST scores of a uint8 image tie often).
+The NMS'd score maps come from the hand-written CUDA kernel
+(`ops.fast_nms`: `extract_features` asks for a whole pyramid at both
+thresholds at once, `detect_keypoints` for one image); `fast_score` +
+`nms3x3` below are that kernel's plain PyTorch version, and
+`select_keypoints` turns a score map into a keypoint table.  Top-k
+selections use a stable descending sort, so ties resolve to the lower
+index exactly as `jax.lax.top_k` does (FAST scores of a uint8 image tie
+often).
 """
 
 from __future__ import annotations
@@ -118,6 +121,17 @@ def _select_budget(flat_s, flat_x, flat_y, max_keypoints: int, dtype) -> Keypoin
     return Keypoints(xy=xy, score=k_s, valid=k_s > 0.0)
 
 
+def select_keypoints(
+    score: torch.Tensor,
+    max_keypoints: int,
+    cell: int = 32,
+    cell_cap: int = 8,
+) -> Keypoints:
+    """Per-cell cap + global top-K of an NMS'd score map -> fixed table."""
+    flat_s, flat_x, flat_y = _cell_candidates(score, cell, cell_cap)
+    return _select_budget(flat_s, flat_x, flat_y, max_keypoints, score.dtype)
+
+
 def detect_keypoints(
     img: torch.Tensor,
     threshold: float,
@@ -128,6 +142,4 @@ def detect_keypoints(
     """FAST + NMS (kernel K1) + per-cell cap + global top-K -> fixed table."""
     from ..ops.fast_nms import fast_score_nms
 
-    score = fast_score_nms(img, threshold)
-    flat_s, flat_x, flat_y = _cell_candidates(score, cell, cell_cap)
-    return _select_budget(flat_s, flat_x, flat_y, max_keypoints, img.dtype)
+    return select_keypoints(fast_score_nms(img, threshold), max_keypoints, cell, cell_cap)

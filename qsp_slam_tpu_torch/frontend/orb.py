@@ -1,7 +1,8 @@
 """Oriented BRIEF descriptors and the multi-level ORB extractor
 (counterpart of `qsp_slam_tpu/frontend/orb.py`).
 
-pyramid -> FAST per level at two thresholds (kernel K1) -> intensity-
+pyramid -> FAST + NMS on every level at two thresholds (kernel K1, one
+launch per frame) -> per-level keypoint selection -> intensity-
 centroid orientation -> steered BRIEF-256 on the blurred level, emitted as
 a fixed-capacity feature table.  The sampling pattern is the reference's
 seeded table (same generator, same seed).  Descriptors come both packed
@@ -18,7 +19,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from .fast import Keypoints, detect_keypoints
+from ..ops.fast_nms import fast_score_nms_pyramid
+from .fast import Keypoints, select_keypoints
 from .pyramid import PyramidConfig, build_pyramid, gaussian_blur
 
 PATCH_R = 15  # orientation patch radius (31x31), as in ORB
@@ -170,9 +172,10 @@ def extract_features(img, cfg: OrbConfig, device=None) -> Features:
         img = torch.as_tensor(np.asarray(img), device=resolve_device(device))
     elif device is not None:
         img = img.to(device)
-    if img.dtype != torch.float32:
-        img = img.to(torch.float32)
+    img = img.to(torch.float32).contiguous()
     pyr = build_pyramid(img, cfg.pyramid)
+    # Kernel K1, one launch: every level at both thresholds.
+    scores = fast_score_nms_pyramid(pyr, (cfg.fast_threshold, cfg.fast_threshold_min))
     budgets = _per_level_budget(cfg)
     scales = cfg.pyramid.scales
 
@@ -180,10 +183,11 @@ def extract_features(img, cfg: OrbConfig, device=None) -> Features:
     for lv, (im, budget) in enumerate(zip(pyr, budgets)):
         if budget <= 0:
             continue
-        kp = detect_keypoints(im, cfg.fast_threshold, budget, cfg.cell, cfg.cell_cap)
+        score, score_min = scores[lv]
+        kp = select_keypoints(score, budget, cfg.cell, cfg.cell_cap)
         # Low-texture fallback: where the strict threshold finds fewer than
         # half the budget, take the minimum-threshold detection instead.
-        kp_min = detect_keypoints(im, cfg.fast_threshold_min, budget, cfg.cell, cfg.cell_cap)
+        kp_min = select_keypoints(score_min, budget, cfg.cell, cfg.cell_cap)
         use_min = torch.sum(kp.valid) < (budget // 2)
         kp = Keypoints(
             xy=torch.where(use_min, kp_min.xy, kp.xy),

@@ -16,6 +16,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -85,3 +87,13 @@ def load(name: str, signature: dict[str, list]) -> ctypes.CDLL:
             )
         _loaded[name] = lib
     return lib
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """Call a launch function with `args` and the current stream of
+    `device`, making `device` current only when it is not (entering the
+    device context costs more host time than most of these launches)."""
+    if device.index is not None and device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return fn(*args, torch.cuda.current_stream().cuda_stream)
+    return fn(*args, torch.cuda.current_stream().cuda_stream)

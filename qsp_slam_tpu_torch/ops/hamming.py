@@ -7,7 +7,9 @@ from it instead of the JAX package's ±1 int8 matmul
 (`frontend/matcher.py:hamming_matrix`): once per frame in
 `search_by_projection` at (map capacity, feature capacity) and once per
 keyframe in `fuse_map_points` at (2048, 2048).  The card bounds it by
-memory, by the (A, B) int32 output; see the CUDA source for the design.
+memory, by the (A, B) int32 output; the inner product runs on the int8
+tensor cores (each bit a ±1 byte, distance = (256 - <a, b>) / 2, as the JAX
+matcher computes it); see the CUDA source for the design.
 
 Descriptors are (N, 8) int32 words holding the u32 bits: bit j of word w is
 descriptor bit 32w + j.  `hamming_packed` takes the plain PyTorch version
@@ -71,13 +73,13 @@ def hamming_packed(bits_a: torch.Tensor, bits_b: torch.Tensor) -> torch.Tensor:
         return hamming_packed_plain(bits_a, bits_b)
     if bits_a.device.type != "cuda" or not (bits_a.is_contiguous() and bits_b.is_contiguous()):
         raise ValueError("hamming_packed needs contiguous CUDA or CPU tensors")
+    if bits_a.data_ptr() % 16 or bits_b.data_ptr() % 16:
+        raise ValueError("hamming_packed's kernel loads 16-byte words: rows must start 16-byte aligned")
     lib = build.load("hamming", _SIG)
     A, B = bits_a.shape[0], bits_b.shape[0]
     out = torch.empty((A, B), dtype=torch.int32, device=bits_a.device)
-    with torch.cuda.device(bits_a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.qsp_hamming_packed(bits_a.data_ptr(), bits_b.data_ptr(),
-                                     out.data_ptr(), A, B, stream)
+    err = build.launch(lib.qsp_hamming_packed, bits_a.device, bits_a.data_ptr(),
+                       bits_b.data_ptr(), out.data_ptr(), A, B)
     if err:
         raise RuntimeError(f"hamming_packed launch failed: {lib.qsp_hamming_packed_error(err).decode()}")
     hamming_packed.launches += 1

@@ -4,8 +4,9 @@ one; this file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: K1 identical keep masks, scores rtol 1e-5 / atol 1e-4; K2
-exact; a short tracking run on the card keeps every camera centre within
+Tolerances: K1 bitwise equal to its plain version (single image and whole
+pyramid), one launch per call; K2 exact, including rows at distance 0 and
+256; a short tracking run on the card keeps every camera centre within
 1 cm of the same run on the CPU.
 """
 
@@ -17,7 +18,12 @@ from qsp_slam_tpu_torch.data.render import make_room, orbit_trajectory, render_f
 from qsp_slam_tpu_torch.frontend.matcher import pack_pm
 from qsp_slam_tpu_torch.frontend.orb import OrbConfig
 from qsp_slam_tpu_torch.frontend.pyramid import PyramidConfig, build_pyramid
-from qsp_slam_tpu_torch.ops.fast_nms import fast_score_nms, fast_score_nms_plain
+from qsp_slam_tpu_torch.ops.fast_nms import (
+    fast_score_nms,
+    fast_score_nms_plain,
+    fast_score_nms_pyramid,
+    fast_score_nms_pyramid_plain,
+)
 from qsp_slam_tpu_torch.ops.hamming import hamming_packed, hamming_packed_plain
 from qsp_slam_tpu_torch.slam.system import SlamSystem
 from qsp_slam_tpu_torch.slam.tracking import TrackingConfig
@@ -32,30 +38,77 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def test_fast_nms_kernel_matches_plain(gen):
+ODD_SHAPES = ((8, 8), (7, 300), (37, 53), (250, 33))
+
+
+def _rendered_pyramid():
     cfg = TrackingConfig()
     g, _ = render_frame(make_room(device="cuda"), orbit_trajectory(4)[3], cfg.intr)
-    images = build_pyramid(torch.round(g).clamp(0, 255), PyramidConfig())
-    images += [torch.randint(0, 256, s, generator=gen, device="cuda").float()
-               for s in ((8, 8), (7, 300), (37, 53), (250, 33))]
-    before = fast_score_nms.launches
+    return build_pyramid(torch.round(g).clamp(0, 255), PyramidConfig())
+
+
+def test_fast_nms_kernel_matches_plain(gen):
+    images = _rendered_pyramid()
+    images += [torch.randint(0, 256, s, generator=gen, device="cuda").float() for s in ODD_SHAPES]
+    before = fast_score_nms_pyramid.launches
     for img in images:
         for t in (20.0, 7.0):
             got, ref = fast_score_nms(img, t), fast_score_nms_plain(img, t)
             torch.cuda.synchronize()
             assert torch.equal(got > 0, ref > 0), (tuple(img.shape), t)
-            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
-    assert fast_score_nms.launches == before + 2 * len(images)
+            assert torch.equal(got, ref), (tuple(img.shape), t)
+    assert fast_score_nms_pyramid.launches == before + 2 * len(images)
+
+
+@pytest.mark.parametrize("which", ["pyramid", "odd_shapes"])
+def test_fast_nms_pyramid_kernel_matches_plain(gen, which):
+    """All levels x both thresholds in one launch; the odd shapes mixed into
+    one call with a pyramid level."""
+    if which == "pyramid":
+        images = _rendered_pyramid()
+    else:
+        images = [torch.randint(0, 256, s, generator=gen, device="cuda").float() for s in ODD_SHAPES]
+        images.insert(2, _rendered_pyramid()[6])
+    ths = (20.0, 7.0)
+    before = fast_score_nms_pyramid.launches
+    got = fast_score_nms_pyramid(images, ths)
+    torch.cuda.synchronize()
+    assert fast_score_nms_pyramid.launches == before + 1
+    for img, maps, refs in zip(images, got, fast_score_nms_pyramid_plain(images, ths)):
+        for t, m, r in zip(ths, maps, refs):
+            assert m.shape == img.shape
+            assert torch.equal(m > 0, r > 0), (tuple(img.shape), t)
+            assert torch.equal(m, r), (tuple(img.shape), t)
+
+
+HAMMING_SHAPES = ((8192, 4000), (2048, 2048), (70, 130), (1, 1), (513, 127), (129, 4001), (4000, 3))
 
 
 def test_hamming_kernel_matches_plain(gen):
-    for A, B in ((8192, 4000), (2048, 2048), (70, 130), (1, 1), (513, 127)):
+    for A, B in HAMMING_SHAPES:
         a = torch.randint(-2**31, 2**31, (A, 8), generator=gen, device="cuda", dtype=torch.int64)
         b = torch.randint(-2**31, 2**31, (B, 8), generator=gen, device="cuda", dtype=torch.int64)
         a, b = a.to(torch.int32), b.to(torch.int32)
         got = hamming_packed(a, b)
         torch.cuda.synchronize()
         assert torch.equal(got, hamming_packed_plain(a, b)), (A, B)
+
+
+def test_hamming_kernel_at_distance_0_and_256(gen):
+    """Rows equal to a B row and rows that are its complement: the dot
+    product reaches +256 and -256, the ends of the int8 -> int32 range."""
+    for A, B in HAMMING_SHAPES:
+        a = torch.randint(-2**31, 2**31, (A, 8), generator=gen, device="cuda", dtype=torch.int64)
+        b = torch.randint(-2**31, 2**31, (B, 8), generator=gen, device="cuda", dtype=torch.int64)
+        a, b = a.to(torch.int32), b.to(torch.int32)
+        rows = torch.arange(A, device="cuda")
+        src = b[rows % B]
+        a = torch.where((rows % 2 == 0)[:, None], src, ~src)
+        got = hamming_packed(a, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, hamming_packed_plain(a, b)), (A, B)
+        d = got[rows, rows % B]
+        assert torch.equal(d, torch.where(rows % 2 == 0, 0, 256).to(torch.int32)), (A, B)
 
 
 def test_hamming_kernel_equals_pm_product(gen):
@@ -69,6 +122,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     img = torch.rand(64, 64, generator=gen, device="cuda")
     with pytest.raises(ValueError):
         fast_score_nms(img.t(), 20.0)
+    for levels in ([img, img.cpu()], [img, img.t()], [img] * 17):
+        with pytest.raises(ValueError):
+            fast_score_nms_pyramid(levels, (20.0, 7.0))
     a = torch.zeros(16, 8, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError):
         hamming_packed(a, a.cpu())

@@ -2,10 +2,14 @@
 against the JAX package.
 
 Stated tolerances: pyramid <= 1e-2 per level (0-255 image); kernel K1's
-plain version: identical keep masks, scores rtol 1e-5 / atol 1e-4;
+plain version (single image and whole pyramid): identical keep masks,
+scores rtol 1e-5 / atol 1e-4; `extract_features` against its per-level
+path of two single-image detections: equal;
 `detect_keypoints`: the same keypoint set; kernel K2's plain version and
 the projection matcher: exact.
 """
+
+import ctypes
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +27,12 @@ from qsp_slam_tpu_torch.frontend import fast as tfast
 from qsp_slam_tpu_torch.frontend import matcher as tmatcher
 from qsp_slam_tpu_torch.frontend import orb as torb
 from qsp_slam_tpu_torch.frontend import pyramid as tpyr
-from qsp_slam_tpu_torch.ops.fast_nms import fast_score_nms, fast_score_nms_plain
+from qsp_slam_tpu_torch.ops import fast_nms
+from qsp_slam_tpu_torch.ops.fast_nms import (
+    fast_score_nms,
+    fast_score_nms_plain,
+    fast_score_nms_pyramid,
+)
 from qsp_slam_tpu_torch.ops.hamming import hamming_packed, hamming_packed_plain
 from qsp_slam_tpu_torch.slam.tracking import TrackingConfig
 
@@ -102,11 +111,78 @@ class TestFastNms:
 
     def test_wrapper_on_cpu_takes_plain_and_launches_nothing(self, rng):
         img = torch.from_numpy(_test_ops_image(rng))
-        before = fast_score_nms.launches
+        before = fast_score_nms_pyramid.launches
         assert torch.equal(fast_score_nms(img, 20.0), fast_score_nms_plain(img, 20.0))
-        assert fast_score_nms.launches == before
+        assert fast_score_nms_pyramid.launches == before
         with pytest.raises(ValueError):
             fast_score_nms(img.double(), 20.0)
+
+    @pytest.mark.parametrize("reference", ["pallas_interpret", "xla"])
+    def test_pyramid_matches_jax_on_every_level(self, gray8, reference):
+        """One call over a rendered 8-level pyramid at t = 20 and 7 against
+        the JAX package, level by level, fed the same level images."""
+        levels = tpyr.build_pyramid(torch.from_numpy(gray8.astype(np.float32)), tpyr.PyramidConfig())
+        ths = (20.0, 7.0)
+        got = fast_score_nms_pyramid(levels, ths)
+        assert len(got) == len(levels) == 8
+        for img, maps in zip(levels, got):
+            assert len(maps) == len(ths)
+            for m, t in zip(maps, ths):
+                x = jnp.asarray(img.numpy())
+                if reference == "xla":
+                    ref = jfast.nms3x3(jfast.fast_score(x, t))
+                else:
+                    ref = fast_score_nms_pallas(x, t, interpret=True)
+                assert m.shape == img.shape
+                assert_same_nms(m, ref)
+        assert int((got[0][0] > 0).sum()) > 30 and int((got[0][1] > 0).sum()) > int((got[0][0] > 0).sum())
+
+    def test_pyramid_launch_struct(self):
+        """The struct the kernel reads: every level's image pointer, shape
+        and first tile, and one pointer per map into the flat buffer, each
+        at the offset of the view returned for it."""
+        shapes = ((480, 640), (37, 53), (7, 300))
+        plan = fast_nms._plan(shapes, (20.0, 7.0))
+        assert ctypes.sizeof(fast_nms._Level) == 40 and ctypes.sizeof(fast_nms._Pyramid) == 664
+        base = 1 << 40
+        p = fast_nms._launch_struct(plan, [1000, 2000, 3000], base)
+        assert (p.n_levels, p.n_thresholds, list(p.t)) == (3, 2, [20.0, 7.0])
+        # Tiles of 32 x 16: 30 x 20, 3 x 2 and 1 x 10 of them.
+        first = [0, 600, 606]
+        assert p.n_tiles == 616
+        offset = 0
+        for i, (H, W) in enumerate(shapes):
+            lv = p.lv[i]
+            assert (lv.img, lv.H, lv.W, lv.first_tile) == (1000 * (i + 1), H, W, first[i])
+            for j in range(2):
+                shape, stride, off = plan.views[i][j]
+                assert (shape, stride, off) == ((H, W), (W, 1), offset)
+                assert lv.out[j] == base + 4 * offset
+                offset += H * W
+        assert plan.numel == offset
+        assert plan.template.lv[0].img is None  # the cached template keeps no pointer
+
+    def test_pyramid_on_cpu_launches_nothing_and_rejects_bad_levels(self, rng):
+        imgs = [torch.from_numpy(_test_ops_image(rng))]
+        imgs += [torch.from_numpy(rng.uniform(0, 255, s).astype(np.float32)) for s in ((37, 53), (8, 8))]
+        before = fast_score_nms_pyramid.launches
+        got = fast_score_nms_pyramid(imgs, (20.0,))
+        assert fast_score_nms_pyramid.launches == before
+        for img, (m,) in zip(imgs, got):
+            assert torch.equal(m, fast_score_nms_plain(img, 20.0))
+        bad = [
+            [imgs[0], imgs[1].double()],  # not float32
+            [imgs[0], imgs[0].t()],  # not contiguous
+            [imgs[0][None]],  # not (H, W)
+            [],  # no level
+            imgs * 6,  # more than 16 levels
+        ]
+        for levels in bad:
+            with pytest.raises(ValueError):
+                fast_score_nms_pyramid(levels, (20.0, 7.0))
+        with pytest.raises(ValueError):
+            fast_score_nms_pyramid(imgs, (20.0, 7.0, 5.0))
+        assert fast_score_nms_pyramid.launches == before
 
     @pytest.mark.parametrize("t", [20.0, 7.0])
     def test_detect_keypoints_same_set(self, gray8, t):
@@ -130,6 +206,30 @@ class TestFastNms:
 class TestExtractFeatures:
     """The whole extractor is held to the JAX one on a rendered frame in
     `test_torch_slam.py::TestTracking::test_process_frame`."""
+
+    def test_split_selection_equals_per_level_detection(self, gray8):
+        """`extract_features` (one pyramid call, then a selection per score
+        map) gives the features of two single-image detections per level."""
+        cfg = torb.OrbConfig(num_features=1000)
+        img = torch.from_numpy(gray8.astype(np.float32))
+        got = torb.extract_features(img, cfg)
+        pyr = tpyr.build_pyramid(img, cfg.pyramid)
+        xy, resp, valid, ang, bits = [], [], [], [], []
+        for lv, (im, budget) in enumerate(zip(pyr, torb._per_level_budget(cfg))):
+            kp = tfast.detect_keypoints(im, cfg.fast_threshold, budget, cfg.cell, cfg.cell_cap)
+            kp_min = tfast.detect_keypoints(im, cfg.fast_threshold_min, budget, cfg.cell, cfg.cell_cap)
+            if int(kp.valid.sum()) < budget // 2:
+                kp = kp_min
+            a = torb.compute_orientation(im, kp.xy)
+            xy.append(kp.xy * cfg.pyramid.scales[lv])
+            resp.append(kp.score)
+            valid.append(kp.valid)
+            ang.append(a)
+            bits.append(torb.compute_descriptors(tpyr.gaussian_blur(im), kp.xy, a)[0])
+        for g, r in zip((got.xy, got.response, got.valid, got.angle, got.desc_bits),
+                        (xy, resp, valid, ang, bits)):
+            assert torch.equal(g, torch.cat(r))
+        assert int(got.valid.sum()) > 300
 
     def test_per_level_budget(self):
         for n in (500, 1000, 4000):
