@@ -24,20 +24,38 @@ Phases (any failure exits non-zero and prints no result line):
      within 1 cm and the keyframes are the same;
   6. per-kernel times (CUDA events) beside the plain version, the library
      yardsticks where they exist and the bound: K1 as one call per frame,
-     K2 at (8192, 4000) and (2048, 2048).
-With `--profile DIR`: a torch.profiler table of main-path frames 12-19 in
-DIR, the device's busy share of that window, each kernel's device time per
-launch there, and each kernel's device time per call alone at the phase-6
-shapes.  Then a `{"kernels": [...]}` line, the card line again, and as the
-last line `{"ok": true, "device": {...}}`.
+     K2 at (8192, 4000) and (2048, 2048);
+  7. the TUM command line: the port's `make_tum` writes a 60-frame
+     object-free sequence to a temporary directory and `run_tum.main` runs
+     it on the card at 4000 features with `--save-dir`: which decoder read
+     the frames, ms/frame, ATE < 0.05 m, RPE, keyframes, K1 once per frame,
+     and `CameraTrajectory.txt` read back through `load_trajectory_tum`;
+  8. recovery at 4000 features: a 2 m kick to the motion model after 12
+     frames, which the reference-keyframe tier must recover (no
+     relocalization, error < 0.08 m), and on the phase-4 system a teleport
+     back to frame 2 under a half-turn prediction, which the reference-
+     keyframe tier must fail and relocalization recover (error < 0.1 m).
+     CUDA events time each whole lost frame; K2's launches and shapes per
+     tier are counted; K2 at the recovery shapes (4000, 384) and
+     (1536, 4000) is held exactly to its plain version (planted rows at
+     distance 0 and 256, and the stacked snapshot table of the teleport's
+     relocalization) and timed alone.
+Paths 4, 7 and 8 each zero the launch counters just before and read them
+just after.  With `--profile DIR`: a torch.profiler table of main-path
+frames 12-19 in DIR, the device's busy share of that window, each kernel's
+device time per launch there, and each kernel's device time per call alone
+at the phase-6 and recovery shapes.  Then a `{"kernels": [...]}` line, the
+card line again, and as the last line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -45,7 +63,12 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+from qsp_slam_tpu_torch import run_tum  # noqa: E402
+from qsp_slam_tpu_torch.core import lie  # noqa: E402
+from qsp_slam_tpu_torch.data import make_tum, native_loader  # noqa: E402
+from qsp_slam_tpu_torch.data.io import load_trajectory_tum  # noqa: E402
 from qsp_slam_tpu_torch.data.render import make_room, orbit_trajectory, render_frame  # noqa: E402
+from qsp_slam_tpu_torch.data.tum import TumSequence  # noqa: E402
 from qsp_slam_tpu_torch.eval.ate import ate_rmse, positions_from_Tcw  # noqa: E402
 from qsp_slam_tpu_torch.frontend.matcher import pack_pm  # noqa: E402
 from qsp_slam_tpu_torch.frontend.orb import OrbConfig  # noqa: E402
@@ -59,7 +82,7 @@ from qsp_slam_tpu_torch.ops.fast_nms import (  # noqa: E402
 )
 from qsp_slam_tpu_torch.ops.hamming import hamming_packed, hamming_packed_plain  # noqa: E402
 from qsp_slam_tpu_torch.slam.system import SlamSystem  # noqa: E402
-from qsp_slam_tpu_torch.slam.tracking import TrackingConfig  # noqa: E402
+from qsp_slam_tpu_torch.slam.tracking import TrackingConfig, process_frame  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM peak outside the tensor cores
@@ -67,6 +90,7 @@ K1_OPS_PER_PX = 140  # per (pixel, threshold): 16 ring taps x ~7 ops + arc test 
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 K2_SHAPES = ((8192, 4000), (2048, 2048), (70, 130), (1, 1), (513, 127), (129, 4001), (4000, 3))
 FRAMES = 60  # main-path frames; the first 10 are warm-up
+SNAP, RELOC_K = 384, 4  # keyframe snapshot rows, relocalization candidates
 
 
 def log(*a):
@@ -94,6 +118,216 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def zero_counts():
+    fast_score_nms_pyramid.launches = 0
+    hamming_packed.launches = 0
+    hamming_packed.shapes.clear()
+
+
+def read_counts() -> dict:
+    return {"fast_nms": fast_score_nms_pyramid.launches, "hamming": hamming_packed.launches,
+            "hamming_shapes": {f"{a}x{b}": n for (a, b), n in sorted(hamming_packed.shapes.items())}}
+
+
+def planted_words(A: int, B: int, gen):
+    """Random packed descriptors; rows 0, 2, ... of the first half of A copy
+    a B row (distance 0), rows 1, 3, ... its complement (distance 256)."""
+    def words(n):
+        return torch.randint(-2**31, 2**31, (n, 8), generator=gen, device="cuda",
+                             dtype=torch.int64).to(torch.int32)
+
+    a, b = words(A), words(B)
+    rows = torch.arange((A + 1) // 2, device="cuda")
+    even = rows % 2 == 0
+    a[rows] = torch.where(even[:, None], b[rows % B], ~b[rows % B])
+    return a, b, rows, even
+
+
+def check_k2(a, b, what: str, rows=None, even=None) -> None:
+    got, ref = hamming_packed(a, b), hamming_packed_plain(a, b)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"K2 differs from plain: {what}")
+    if rows is not None and not torch.equal(got[rows, rows % b.shape[0]], torch.where(even, 0, 256).to(torch.int32)):
+        raise AssertionError(f"K2 misses the planted distances 0 and 256: {what}")
+
+
+def k2_bound(A, B):
+    """K2's least time: the (A, B) int32 write and the packed inputs, against
+    the +-1 int8 product on the tensor cores."""
+    return {"bytes": ((A + B) * 32 + A * B * 4) / HBM_BYTES_PER_S,
+            "operations": 2 * A * B * 256 / INT8_OPS_PER_S}
+
+
+def k2_times(a, b, gen, reps: int) -> dict:
+    """K2 on the packed rows (a, b) by CUDA events, beside its plain version
+    and bound, and the yardsticks: the same product as one f32 matmul and as
+    one int8 matmul (the JAX matcher's formulation) of random ±1 rows of
+    the same shapes, neither called by the port."""
+    A, B = a.shape[0], b.shape[0]
+    pm_a, pm_b = (torch.where(torch.rand(n, 256, generator=gen, device="cuda") < 0.5, 1, -1).to(torch.int8)
+                  for n in (A, B))
+    bound = k2_bound(A, B)
+    return {
+        "ms": cuda_ms(lambda: hamming_packed(a, b), reps),
+        "plain_ms": cuda_ms(lambda: hamming_packed_plain(a, b), 5),
+        "bound_ms": max(bound.values()) * 1e3,
+        "bound_by": max(bound, key=bound.get),
+        "library_ms": cuda_ms(lambda: (256 - pm_a.float() @ pm_b.float().T) // 2, 20),
+        "library_int8_ms": cuda_ms(lambda: (256 - torch._int_mm(pm_a, pm_b.T)) // 2, 50),
+    }
+
+
+def lost_frame(sysm, g8, d16, what: str, profile: Path | None = None) -> dict:
+    """Track one frame that the motion model loses, timed with CUDA events
+    around the whole frame; the launch counters cover this frame only.
+    With `profile` (a file), the frame runs under torch.profiler instead:
+    the device's busy time in it is logged and the operator table written
+    there (the profiler slows the host, so the frame's time is not kept)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    before = {k: sysm.stats.get(k, 0) for k in ("ref_kf_recoveries", "relocalizations")}
+    torch.cuda.synchronize()
+    zero_counts()
+    if profile:
+        with profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+            T = sysm.track_rgbd(g8, d16)
+            torch.cuda.synchronize()
+        busy = sum(e.time_range.elapsed_us() for e in pr.events() if e.device_type == DeviceType.CUDA)
+        profile.write_text(pr.key_averages().table(sort_by="cuda_time_total", row_limit=40))
+        log(f"  {what}: device busy {busy / 1e3:.3f} ms in the profiled lost frame (table in {profile})")
+        return {"T": T, "device_busy_ms": busy / 1e3}
+    e0.record()
+    T = sysm.track_rgbd(g8, d16)
+    e1.record()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    tiers = {k: sysm.stats.get(k, 0) - v for k, v in before.items()}
+    log(f"  {what}: lost frame {e0.elapsed_time(e1):.3f} ms, tiers {tiers}, launches {counts}")
+    return {"T": T, "ms": e0.elapsed_time(e1), "tiers": tiers, "launches": counts}
+
+
+def tum_path(cfg) -> dict:
+    """Phase 7: fabricate a sequence, run the TUM command line on it."""
+    native_loader.library()  # the decoder's build is not part of the run
+    with tempfile.TemporaryDirectory() as tmp:
+        seq_dir, out_dir = os.path.join(tmp, "seq"), os.path.join(tmp, "out")
+        make_tum.main([seq_dir, "--frames", str(FRAMES)])
+        conf = os.path.join(tmp, "seq.yaml")
+        Path(conf).write_text(f"ORBextractor.nFeatures: {cfg.orb.num_features}\n")
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = run_tum.main([seq_dir, "--config", conf, "--save-dir", out_dir])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        ts, Tcw = load_trajectory_tum(os.path.join(out_dir, "CameraTrajectory.txt"))
+        gt = np.stack([np.linalg.inv(f[3]) for f in TumSequence(seq_dir).frames])
+        reread_ate = ate_rmse(Tcw, gt)
+    log(f"phase 7 TUM command line: {len(ts)} frames decoded by {out['decoded_by']}, "
+        f"{wall_ms / FRAMES:.3f} ms/frame end to end (decode, tracking, saves; track median "
+        f"{out['track_ms_median']:.3f}), {out['keyframes']} keyframes, ATE {out['ate_rmse_m']:.5f} m, "
+        f"RPE {out['rpe_trans_rmse']:.5f} m / {out['rpe_rot_rmse_deg']:.4f} deg per frame, "
+        f"keyframe ATE {out.get('kf_ate_rmse_m')}, launches {counts}; CameraTrajectory.txt re-read: "
+        f"{len(ts)} poses, ATE {reread_ate:.5f} m")
+    if not (out["ate_rmse_m"] < 0.05 and len(ts) == FRAMES and abs(reread_ate - out["ate_rmse_m"]) < 1e-4):
+        raise AssertionError(f"TUM path failed: {out}, re-read ATE {reread_ate}, {len(ts)} poses")
+    if counts["fast_nms"] != FRAMES or counts["hamming"] < 1 or sum(out["decoded_by"].values()) != FRAMES:
+        raise AssertionError(f"TUM path: launches {counts}, decoders {out['decoded_by']}")
+    return {"ms_per_frame": wall_ms / FRAMES, "launches": counts, "out": out}
+
+
+def svd_ms(candidates: int) -> float:
+    """Time of the batched SVDs that one PnP pass over `candidates`
+    candidates makes (128 hypotheses per pool and candidate): 12x12 and
+    3x3 for the DLT pool, 4x3, 8x9 and 3x3 for the planar pool."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    mats = [torch.randn(candidates * 128, r, c, generator=g, device="cuda")
+            for r, c in ((12, 12), (3, 3), (4, 3), (8, 9), (3, 3))]
+    return cuda_ms(lambda: [torch.linalg.svd(m) for m in mats], 10)
+
+
+def recovery_path(cfg, frames, Tcw_gt, sysm_main, profile: Path | None) -> dict:
+    """Phase 8: the kick (reference-keyframe tier) and the teleport
+    (relocalization), each a lost frame of its own."""
+    kick_sys = SlamSystem(cfg, device="cuda")
+    for g8, d16 in frames[:12]:
+        kick_sys.track_rgbd(g8, d16)
+    kick = np.eye(4, dtype=np.float32)
+    kick[0, 3] = 2.0
+    kick_sys.velocity = kick
+    k = lost_frame(kick_sys, *frames[12], "kick (2 m) after 12 frames")
+    err = float(np.linalg.norm(k["T"][:3, 3] - Tcw_gt[12][:3, 3]))
+    for i in range(13, 16):
+        T = kick_sys.track_rgbd(*frames[i])
+    err_after = float(np.linalg.norm(T[:3, 3] - Tcw_gt[15][:3, 3]))
+    log(f"  kick: error {err:.5f} m at the lost frame, {err_after:.5f} m three frames on")
+    if k["tiers"] != {"ref_kf_recoveries": 1, "relocalizations": 0} or err >= 0.08 or err_after >= 0.08:
+        raise AssertionError(f"the reference-keyframe tier did not recover the kick: {k['tiers']}, {err}")
+    # The first lost frame of the process also pays cuSOLVER's start-up;
+    # a second kick times the tier warm.
+    kick_sys.velocity = kick
+    k2 = lost_frame(kick_sys, *frames[16], "kick again at frame 16 (warm)")
+    if k2["tiers"] != k["tiers"] or np.linalg.norm(k2["T"][:3, 3] - Tcw_gt[16][:3, 3]) >= 0.08:
+        raise AssertionError(f"the second kick was not recovered: {k2['tiers']}")
+    if profile:
+        kick_sys.velocity = kick
+        lost_frame(kick_sys, *frames[17], "kick at frame 17, profiled", profile=profile / "lost_kick.txt")
+
+    # The motion model predicts a half turn, so no map point is in view: a
+    # milder wrong prediction can still pass the consistency gate on this
+    # repetitive texture at 4000 features.
+    sysm_main.velocity = lie.exp_se3(torch.tensor([0, 0, 0, 0, 3.1, 0])).numpy()
+    t = lost_frame(sysm_main, *frames[2], f"teleport from frame {FRAMES - 1} back to frame 2")
+    err_t = float(np.linalg.norm(t["T"][:3, 3] - Tcw_gt[2][:3, 3]))
+    log(f"  teleport: error {err_t:.5f} m")
+    if t["tiers"] != {"ref_kf_recoveries": 0, "relocalizations": 1} or err_t >= 0.1:
+        raise AssertionError(f"relocalization did not recover the teleport: {t['tiers']}, {err_t}")
+    sysm_main.velocity = lie.exp_se3(torch.tensor([0, 0, 0, 0, 3.1, 0])).numpy()
+    t2 = lost_frame(sysm_main, *frames[2], "the same teleport again (warm)")
+    if t2["tiers"] != t["tiers"] or np.linalg.norm(t2["T"][:3, 3] - Tcw_gt[2][:3, 3]) >= 0.1:
+        raise AssertionError(f"the second teleport was not recovered: {t2['tiers']}")
+    if profile:
+        sysm_main.velocity = lie.exp_se3(torch.tensor([0, 0, 0, 0, 3.1, 0])).numpy()
+        lost_frame(sysm_main, *frames[2], "the same teleport, profiled", profile=profile / "lost_teleport.txt")
+    svd = {"reference_keyframe": svd_ms(1), "relocalization": svd_ms(RELOC_K)}
+    log(f"  batched SVDs of one PnP pass, ms by events: {svd}")
+
+    # K2 at the recovery shapes against plain: planted rows, then the
+    # teleport frame's features against its relocalization's stacked
+    # snapshot table (each row must start 16-byte aligned).
+    F = cfg.orb.num_features
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    shapes = ((F, SNAP), (RELOC_K * SNAP, F))
+    k2_in = {}
+    for A, B in shapes:
+        a, b, rows, even = planted_words(A, B, gen)
+        check_k2(a, b, f"recovery shape ({A}, {B})", rows, even)
+        k2_in[(A, B)] = (a, b)
+    frame = process_frame(torch.from_numpy(frames[2][0]).cuda(),
+                          torch.from_numpy(frames[2][1].astype(np.int32)).cuda().float() / cfg.depth_png_scale, cfg)
+    ls = sysm_main.loop_state
+    table = pack_pm(ls.kf_desc[: min(RELOC_K, int(ls.db.count))].reshape(-1, 256))
+    if table.data_ptr() % 16 or table.stride(0) * 4 % 16:
+        raise AssertionError("the stacked snapshot table is not 16-byte aligned per row")
+    check_k2(table, frame.feats.desc_bits, f"stacked snapshot table {tuple(table.shape)} x features")
+    check_k2(frame.feats.desc_bits, pack_pm(ls.kf_desc[int(sysm_main.map_state.num_kfs) - 1]),
+             "features x newest snapshot")
+    log(f"phase 8 recovery: K2 at {shapes} exactly equal to plain (planted rows at distance 0 and 256), "
+        f"and on the teleport frame's features against real snapshot tables")
+
+    times = {}
+    for A, B in shapes:
+        times[f"{A}x{B}"] = k2_times(*k2_in[(A, B)], gen, 200)
+        log(f"  K2 at ({A}, {B}): {times[f'{A}x{B}']}")
+    return {"kick": k, "kick_warm": k2, "teleport": t, "teleport_warm": t2, "svd_ms": svd,
+            "k2": times, "k2_inputs": k2_in}
 
 
 def render_sequence(n: int, cfg, device):
@@ -181,33 +415,18 @@ def main() -> int:
         f"max abs err {k1_err}")
 
     # 3. K2 against its plain version ----------------------------------
-    def words(n):
-        return torch.randint(-2**31, 2**31, (n, 8), generator=gen, device="cuda",
-                             dtype=torch.int64).to(torch.int32)
-
     k2_in = {}
     for A, B in K2_SHAPES:
-        a, b = words(A), words(B)
-        # Rows 0, 2, ... of A copy a B row (distance 0), rows 1, 3, ... its
-        # complement (distance 256), in the first half; the rest stay random.
-        rows = torch.arange((A + 1) // 2, device="cuda")
-        even = rows % 2 == 0
-        a[rows] = torch.where(even[:, None], b[rows % B], ~b[rows % B])
+        a, b, rows, even = planted_words(A, B, gen)
         k2_in[(A, B)] = (a, b)
-        got, ref = hamming_packed(a, b), hamming_packed_plain(a, b)
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            raise AssertionError(f"K2 differs from plain at ({A}, {B})")
-        if not torch.equal(got[rows, rows % B], torch.where(even, 0, 256).to(torch.int32)):
-            raise AssertionError(f"K2 at ({A}, {B}) misses the planted distances 0 and 256")
+        check_k2(a, b, f"({A}, {B})", rows, even)
     log(f"phase 3 K2 vs plain: {', '.join(map(str, K2_SHAPES))} exactly equal, "
         "planted rows at distance 0 and 256 included")
 
     # 4. main path at full width --------------------------------------
-    fast_score_nms_pyramid.launches = 0
-    hamming_packed.launches = 0
+    zero_counts()
     sysm, wall = run_slam(cfg, frames, "cuda")
-    launches = {"fast_nms": fast_score_nms_pyramid.launches, "hamming": hamming_packed.launches}
+    launches = read_counts()
     est = np.stack(sysm.trajectory)
     ate = ate_rmse(est, Tcw_gt[: len(est)])
     s = sysm.summary()
@@ -238,34 +457,16 @@ def main() -> int:
     k1_s = {"bytes": px * 4 * (1 + len(ths)) / HBM_BYTES_PER_S,
             "operations": px * len(ths) * K1_OPS_PER_PX / FP32_OPS_PER_S}
 
-    # K2: the (A, B) int32 write against the +-1 int8 product on the tensor
-    # cores; yardsticks: the same product as one f32 matmul and as one int8
-    # matmul (the JAX matcher's formulation), neither called by the port.
-    def k2_bound(A, B):
-        return {"bytes": ((A + B) * 32 + A * B * 4) / HBM_BYTES_PER_S,
-                "operations": 2 * A * B * 256 / INT8_OPS_PER_S}
-
-    def pm_rows(n):
-        return torch.where(torch.rand(n, 256, generator=gen, device="cuda") < 0.5, 1, -1).to(torch.int8)
-
+    # K2: the yardsticks compute K2's function (checked here on ±1 rows).
     k2_time = {}
     for A, B in ((8192, 4000), (2048, 2048)):
-        pm_a, pm_b = pm_rows(A), pm_rows(B)
-        f32 = lambda: (256 - pm_a.float() @ pm_b.float().T) // 2  # noqa: E731
-        int8 = lambda: (256 - torch._int_mm(pm_a, pm_b.T)) // 2  # noqa: E731
+        pm_a, pm_b = (torch.where(torch.rand(n, 256, generator=gen, device="cuda") < 0.5, 1, -1).to(torch.int8)
+                      for n in (A, B))
         got = hamming_packed(pack_pm(pm_a), pack_pm(pm_b))
-        if not (torch.equal(got, f32().to(torch.int32)) and torch.equal(got, int8())):
+        if not (torch.equal(got, ((256 - pm_a.float() @ pm_b.float().T) // 2).to(torch.int32))
+                and torch.equal(got, (256 - torch._int_mm(pm_a, pm_b.T)) // 2)):
             raise AssertionError(f"K2 differs from the ±1 matmul yardsticks at ({A}, {B})")
-        a, b = k2_in[(A, B)]
-        bound = k2_bound(A, B)
-        k2_time[(A, B)] = {
-            "ms": cuda_ms(lambda: hamming_packed(a, b), 100),
-            "plain_ms": cuda_ms(lambda: hamming_packed_plain(a, b), 5),
-            "bound_ms": max(bound.values()) * 1e3,
-            "bound_by": max(bound, key=bound.get),
-            "library_ms": cuda_ms(f32, 20),
-            "library_int8_ms": cuda_ms(int8, 50),
-        }
+        k2_time[(A, B)] = k2_times(*k2_in[(A, B)], gen, 100)
     kernels = [
         {
             "name": "fast_score_nms", "route": "cuda",
@@ -294,6 +495,28 @@ def main() -> int:
         log(f"phase 6 {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, "
             f"library {k['library_ms']}, bound {k['bound_ms']:.4f} by {k['bound_by']})")
     log(f"phase 6 hamming_packed at (2048, 2048): {k2_time[(2048, 2048)]}")
+
+    # 7. the TUM command line --------------------------------------------
+    tum = tum_path(cfg)
+
+    # 8. recovery -------------------------------------------------------
+    prof_dir = Path(args.profile) if args.profile else None
+    if prof_dir:
+        prof_dir.mkdir(parents=True, exist_ok=True)
+    rec = recovery_path(cfg, frames, Tcw_gt, sysm, profile=prof_dir)
+    kernels[0]["launches_tum_path"] = tum["launches"]["fast_nms"]
+    kernels[1]["launches_tum_path"] = tum["launches"]["hamming"]
+    kernels[1]["recovery"] = {
+        "at_" + shape: times for shape, times in rec["k2"].items()
+    } | {
+        f"{name}_lost_frame": {"ms": rec[name]["ms"], "launches": rec[name]["launches"]["hamming_shapes"]}
+        for name in ("kick", "kick_warm", "teleport", "teleport_warm")
+    } | {
+        "svd_ms": rec["svd_ms"],
+        "unit": "ms of one call at (features, snapshot rows) and (4 snapshots' rows, features); lost-frame ms "
+                "by CUDA events around track_rgbd (the first kick is the process's first lost frame); "
+                "launches per (A, B) in that frame",
+    }
 
     if args.profile:
         from torch.autograd import DeviceType
@@ -331,17 +554,17 @@ def main() -> int:
         # Each kernel alone, `reps` back-to-back calls per shape in one
         # profiled window: device time per call, which the events of phase 6
         # cannot show where the host takes longer per call than the card.
-        # The profiler can drop the first kernel records of a window, so a
-        # warm-up block leads and each shape takes its records from the end
-        # of the window, in launch order.
+        # The profiler can drop the first kernel records of a window (85 of
+        # 260 in one run), so 300 warm-up calls lead and each shape takes
+        # its records from the end of the window, in launch order.  (Windows
+        # of their own per shape lost records too.)
         reps = 50
         alone = [("K1, one frame (8 levels x 2 thresholds)", kernel_names[0],
                   lambda: fast_score_nms_pyramid(levels, ths))]
-        for A, B in ((8192, 4000), (2048, 2048)):
-            alone.append((f"K2 at ({A}, {B})", kernel_names[1],
-                          lambda a=k2_in[(A, B)][0], b=k2_in[(A, B)][1]: hamming_packed(a, b)))
+        for (A, B), (a, b) in [(sh, k2_in[sh]) for sh in ((8192, 4000), (2048, 2048))] + list(rec["k2_inputs"].items()):
+            alone.append((f"K2 at ({A}, {B})", kernel_names[1], lambda a=a, b=b: hamming_packed(a, b)))
         with profile(activities=[ProfilerActivity.CUDA]) as pr:
-            for fn in [alone[0][2]] * 10 + [fn for _, _, fn in alone for _ in range(reps)]:
+            for fn in [alone[0][2]] * 300 + [fn for _, _, fn in alone for _ in range(reps)]:
                 fn()
             torch.cuda.synchronize()
         launched = sorted((e for e in pr.events() if e.device_type == DeviceType.CUDA),

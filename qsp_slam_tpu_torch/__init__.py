@@ -7,10 +7,13 @@ core        SE3 Lie group and pinhole camera math
 ops         hand-written CUDA kernels (FAST score + NMS, packed Hamming)
               with their plain PyTorch versions
 opt         reprojection factors, pose-only LM, Schur local BA
-frontend    image pyramid, FAST, ORB, projection matching
-slam        SoA map, tracking, local mapping, keyframe snapshots, facade
-data        synthetic room renderer
-eval        trajectory ATE
+frontend    image pyramid, FAST, ORB, projection and mutual matching, PnP
+slam        SoA map, tracking, local mapping, keyframe snapshots, place
+              queries, relocalization, YAML config, checkpoints, facade
+data        synthetic room renderer, TUM reader, native PNG loader,
+              trajectory/map files, the make_tum fabricator
+eval        trajectory ATE and RPE
+run_tum     the TUM RGB-D command line
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; there is
 no silent CPU fallback (`resolve_device`).

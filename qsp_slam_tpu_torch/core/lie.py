@@ -1,7 +1,8 @@
 """SO(3)/SE(3) exponential and logarithm maps, batched over leading dims.
 
-Counterpart of `qsp_slam_tpu/core/lie.py` (the SE(3) half; Sim(3) and the
-quaternion helpers arrive with the loop-closing slice).  Same conventions:
+Counterpart of `qsp_slam_tpu/core/lie.py` (the SE(3) half and the
+quaternion helpers of the trajectory formats; Sim(3) arrives with the
+loop-closing slice).  Same conventions:
 se(3) tangent xi = [v(3), w(3)], translation first; rotations are 3x3
 matrices, rigid transforms (..., 4, 4); Taylor-guarded small-angle
 branches so theta == 0 is exact and NaN-free.
@@ -172,3 +173,50 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     return pts @ R.transpose(-1, -2) + t[..., None, :]
+
+
+# ---------------------------------------------------------------------------
+# Quaternions (x, y, z, w convention), for the trajectory formats.
+# ---------------------------------------------------------------------------
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion [x, y, z, w] (..., 4) -> rotation matrix (..., 3, 3)."""
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], dim=-1),
+            torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], dim=-1),
+            torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion [x, y, z, w], branch
+    free: all four Shepperd candidates, the one with the largest squared
+    magnitude (first on ties), sign canonicalised to w >= 0."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw2 = torch.clamp(1.0 + tr, min=0.0)
+    qx2 = torch.clamp(1.0 + m00 - m11 - m22, min=0.0)
+    qy2 = torch.clamp(1.0 - m00 + m11 - m22, min=0.0)
+    qz2 = torch.clamp(1.0 - m00 - m11 + m22, min=0.0)
+    cands = torch.stack(
+        [
+            torch.stack([m21 - m12, m02 - m20, m10 - m01, qw2], dim=-1),
+            torch.stack([qx2, m01 + m10, m02 + m20, m21 - m12], dim=-1),
+            torch.stack([m01 + m10, qy2, m12 + m21, m02 - m20], dim=-1),
+            torch.stack([m02 + m20, m12 + m21, qz2, m10 - m01], dim=-1),
+        ],
+        dim=-2,
+    )  # (..., candidate, 4)
+    best = torch.argmax(torch.stack([qw2, qx2, qy2, qz2], dim=-1), dim=-1)
+    onehot = F.one_hot(best, 4).to(R.dtype)
+    q = torch.einsum("...cd,...c->...d", cands, onehot)
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return q * torch.where(q[..., 3:4] < 0.0, -1.0, 1.0)

@@ -6,7 +6,8 @@ For ±1 rows, Hamming on the packed bits equals the JAX package's
 written) map rows, which every caller's validity mask already removes.
 The projection search takes the distance matrix as an argument so tracking
 computes it once per frame and shares it between the 1x and 2x radius
-searches, whose masks are all that differ.
+searches, whose masks are all that differ; the mutual match takes it too,
+so relocalization makes one K2 call for all its candidate keyframes.
 """
 
 from __future__ import annotations
@@ -48,12 +49,13 @@ def masked_best_match(
     ratio: float = 1.0,
 ) -> MatchResult:
     """Best match per row with an optional Lowe ratio test against the
-    second best.  dist (A, B) int32; mask (A, B) bool candidate gate."""
+    second best.  dist (..., A, B) int32; mask (..., A, B) bool candidate
+    gate; leading dimensions are independent problems."""
     d = torch.where(mask, dist, _BIG)
-    best = torch.argmin(d, dim=1)  # first minimum, as jnp.argmin
-    dbest = torch.gather(d, 1, best[:, None])[:, 0]
-    d2 = d.scatter(1, best[:, None], _BIG)
-    dsecond = torch.min(d2, dim=1).values
+    best = torch.argmin(d, dim=-1)  # first minimum, as jnp.argmin
+    dbest = torch.gather(d, -1, best[..., None])[..., 0]
+    d2 = d.scatter(-1, best[..., None], _BIG)
+    dsecond = torch.min(d2, dim=-1).values
     ok = (dbest <= max_dist) & (dbest.to(torch.float32) <= ratio * dsecond.to(torch.float32))
     return MatchResult(
         idx=torch.where(ok, best.to(torch.int32), -1),
@@ -102,6 +104,35 @@ def search_by_projection(
         radius_per_row, octave_window,
     )
     return masked_best_match(dist, mask, max_dist=max_dist, ratio=ratio)
+
+
+def mutual_match(
+    dist: torch.Tensor,
+    valid_a: torch.Tensor,
+    valid_b: torch.Tensor,
+    max_dist: int = TH_LOW,
+    ratio: float = 0.9,
+    pair_mask: torch.Tensor | None = None,
+) -> MatchResult:
+    """Mutual-best matching on a (..., A, B) distance matrix from
+    `hamming_matrix`: a row's best column must pick that row back.  The
+    backward pass runs on the transpose of the same matrix.  `pair_mask`
+    (..., A, B) restricts the candidates (e.g. `word_mask`)."""
+    mask = valid_a[..., :, None] & valid_b[..., None, :]
+    if pair_mask is not None:
+        mask = mask & pair_mask
+    fwd = masked_best_match(dist, mask, max_dist=max_dist, ratio=ratio)
+    bwd = masked_best_match(dist.transpose(-1, -2), mask.transpose(-1, -2), max_dist=max_dist, ratio=ratio)
+    a_idx = torch.arange(dist.shape[-2], dtype=torch.int32, device=dist.device)
+    back = torch.gather(bwd.idx, -1, torch.clamp(fwd.idx, min=0).long())
+    mutual = fwd.valid & (back == a_idx)
+    return MatchResult(idx=torch.where(mutual, fwd.idx, -1), dist=fwd.dist, valid=mutual)
+
+
+def word_mask(word_a: torch.Tensor, word_b: torch.Tensor) -> torch.Tensor:
+    """(A, B) gate of features quantized to the same vocabulary word (the
+    bag-of-words bucket of the reference matcher)."""
+    return word_a[:, None] == word_b[None, :]
 
 
 def _segment_min(vals: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:

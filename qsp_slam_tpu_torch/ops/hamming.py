@@ -18,6 +18,7 @@ only for tensors on the CPU; on CUDA it launches the kernel or raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -83,7 +84,9 @@ def hamming_packed(bits_a: torch.Tensor, bits_b: torch.Tensor) -> torch.Tensor:
     if err:
         raise RuntimeError(f"hamming_packed launch failed: {lib.qsp_hamming_packed_error(err).decode()}")
     hamming_packed.launches += 1
+    hamming_packed.shapes[(A, B)] += 1
     return out
 
 
 hamming_packed.launches = 0
+hamming_packed.shapes = collections.Counter()  # launches per (A, B)

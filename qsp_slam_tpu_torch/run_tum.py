@@ -1,0 +1,107 @@
+"""TUM RGB-D command line (counterpart of `qsp_slam_tpu/run_tum.py`,
+point-only): reads a TUM-format sequence, tracks every `--skip`-th frame,
+and prints one JSON line: `SlamSystem.summary()`, the ATE, RPE and
+keyframe ATE against the ground truth when it has one, and `decoded_by`,
+the number of frames each decoder read.  With `--save-dir` it writes
+`CameraTrajectory.txt` (TUM format) and `map.npz`.  It runs on CUDA unless
+given `--cpu`.
+
+    python -m qsp_slam_tpu_torch.run_tum SEQUENCE_DIR [--config seq.yaml]
+        [--save-dir out] [--skip N] [--max-frames F] [--global-ba] [--cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import resource
+import sys
+from collections import Counter
+
+import numpy as np
+
+_LATER = {
+    "detections": "slice 6 (quadric objects)",
+    "detector": "slice 8 (learned detectors)",
+    "save_frames": "slice 10 (tools: frame drawer)",
+    "mesh": "slice 9 (distribution)",
+}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("sequence")
+    ap.add_argument("--config", default=None, help="sequence YAML")
+    ap.add_argument("--save-dir", default=None)
+    ap.add_argument("--skip", type=int, default=1, help="process every Nth frame")
+    ap.add_argument("--max-frames", type=int, default=None)
+    ap.add_argument("--detections", default=None, help="per-frame detection caches (not in this port yet)")
+    ap.add_argument("--detector", default=None, help="2D-detector weights (not in this port yet)")
+    ap.add_argument("--save-frames", default=None, help="annotated frames (not in this port yet)")
+    ap.add_argument("--mesh", type=int, default=None, help="sharded global BA (not in this port yet)")
+    ap.add_argument("--global-ba", action="store_true",
+                    help="one full-map optimization pass after the sequence")
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of CUDA")
+    args = ap.parse_args(argv)
+    for name, where in _LATER.items():
+        if getattr(args, name) is not None:
+            raise NotImplementedError(f"--{name.replace('_', '-')} arrives with ROADMAP {where}")
+
+    from .data.io import save_map, save_trajectory_tum
+    from .data.tum import TumSequence
+    from .eval.ate import ate_rmse, rpe
+    from .slam.system import SlamSystem
+    from .slam.tracking import TrackingConfig
+
+    if args.config:
+        from .slam.config import tracking_config_from_yaml
+
+        cfg = tracking_config_from_yaml(args.config)
+    else:
+        cfg = TrackingConfig()
+    seq = TumSequence(args.sequence)
+    sysm = SlamSystem(cfg, device="cpu" if args.cpu else None)
+    timestamps, gt = [], []
+    indices = list(range(0, len(seq), args.skip))
+    if args.max_frames:
+        indices = indices[: args.max_frames]
+    # Frames decode ahead on the native worker pool.
+    for gray, depth, t, T_cw_gt, _ in seq.prefetch_iter(indices):
+        sysm.track_rgbd(gray, depth)
+        timestamps.append(t)
+        gt.append(T_cw_gt)
+        if len(timestamps) % 50 == 0:
+            rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024
+            print(f"[{len(timestamps)}] kfs={sysm.stats['keyframes']} rss={rss}MB", file=sys.stderr)
+
+    if args.global_ba:
+        sysm.run_global_ba()
+    out = sysm.summary()
+    if args.global_ba:
+        out["global_ba"] = True
+    est = np.stack(sysm.trajectory)
+    if gt and all(g is not None for g in gt):
+        gt_arr = np.stack(gt)
+        out["ate_rmse_m"] = ate_rmse(est, gt_arr)
+        out.update(rpe(est, gt_arr))
+        # Keyframe-trajectory ATE: reflects what global BA corrects, which
+        # the per-frame history above does not.
+        kf_frames = sysm.stats.get("kf_frames", [])
+        n_kf = int(sysm.map_state.num_kfs)
+        if len(kf_frames) >= 2 and len(kf_frames) == n_kf:
+            live = sysm.map_state.kf_valid[:n_kf].cpu().numpy()
+            kf_est = sysm.map_state.kf_Tcw[:n_kf].cpu().numpy()[live]
+            if len(kf_est) >= 2:
+                out["kf_ate_rmse_m"] = ate_rmse(kf_est, gt_arr[np.asarray(kf_frames)[live]])
+    out["decoded_by"] = dict(Counter(seq.decoded_by.values()))
+    if args.save_dir:
+        os.makedirs(args.save_dir, exist_ok=True)
+        save_trajectory_tum(os.path.join(args.save_dir, "CameraTrajectory.txt"), timestamps, est)
+        save_map(os.path.join(args.save_dir, "map.npz"), sysm.map_state)
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,5 @@
-"""Local mapping: covisibility-window bundle adjustment, map-point fusion
-and keyframe culling over the SoA map (counterpart of
+"""Local mapping: covisibility-window bundle adjustment, the whole-map BA,
+map-point fusion and keyframe culling over the SoA map (counterpart of
 `qsp_slam_tpu/slam/local_mapping.py`).
 
 The fusion's descriptor distances come from kernel K2.
@@ -93,6 +93,29 @@ def local_ba_step(
     kf_Tcw = torch.cat([m.kf_Tcw, m.kf_Tcw.new_zeros((1, 4, 4))])
     kf_Tcw[torch.where(win_valid, kf_sel, Kmax)] = res.Tcw
     return m._replace(kf_Tcw=kf_Tcw[:Kmax], pt_xyz=res.points, ob_valid=ob_valid_new)
+
+
+def global_ba_step(m: MapState, cfg: TrackingConfig, iters: int = 10) -> MapState:
+    """Whole-map BA: `local_bundle_adjustment` over every keyframe and all
+    points, keyframe 0 fixed as the gauge (iters // 2 robust iterations,
+    the rest on the gated inliers)."""
+    Kmax = m.kf_Tcw.shape[0]
+    kf_ids = torch.arange(Kmax, dtype=torch.int32, device=m.device)
+    in_map = kf_ids < m.num_kfs
+    cam_fixed = (kf_ids == 0) | ~in_map
+    ob_kf, ob_pt = m.ob_kf.long(), m.ob_pt.long()
+    valid = m.ob_valid & in_map[ob_kf] & m.pt_valid[ob_pt]
+    inv_sigma2 = (1.0 / cfg.orb.pyramid.scale_factor ** 2) ** m.ob_octave.to(torch.float32)
+    edges = ReprojEdges(ob_kf, ob_pt, m.ob_uv, m.ob_ur, inv_sigma2, valid)
+    res = local_bundle_adjustment(
+        m.kf_Tcw, m.pt_xyz, cam_fixed, edges, cfg.intr, baseline_fx=cfg.bf,
+        iters_robust=iters // 2, iters_final=iters - iters // 2,
+    )
+    return m._replace(
+        kf_Tcw=torch.where(in_map[:, None, None], res.Tcw, m.kf_Tcw),
+        pt_xyz=res.points,
+        ob_valid=torch.where(in_map[ob_kf], res.inlier & m.ob_valid, m.ob_valid),
+    )
 
 
 def fuse_map_points(

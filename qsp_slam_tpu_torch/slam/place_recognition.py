@@ -1,7 +1,9 @@
-"""Place-recognition signatures and their store (counterpart of
-`qsp_slam_tpu/slam/place_recognition.py`, the parts every keyframe runs:
-the multi-table LSH signature and the uint8 database it is appended to).
-Querying arrives with the recovery and loop-closing slices.
+"""Place recognition (counterpart of `qsp_slam_tpu/slam/place_recognition.py`):
+the matcher vocabulary's word ids, the multi-table LSH signature every
+keyframe appends to a uint8 database, and the idf-weighted cosine queries
+that relocalization (and, in a later slice, loop closing) run against it.
+Top-k selection is a stable descending sort, which breaks ties by the
+lower index as `jax.lax.top_k` does.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..frontend.fast import topk_stable
 from ..frontend.orb import DESC_BITS
 
 NUM_WORDS = 512
@@ -23,8 +26,17 @@ def _make_vocab(seed: int = 11, words: int = NUM_WORDS) -> np.ndarray:
 
 
 # The matcher vocabulary (`quantize_words`, bag-of-words matching), kept
-# bit-identical to the reference for the slices that use it.
+# bit-identical to the reference.
 _VOCAB = _make_vocab()
+
+
+def quantize_words(desc_pm: torch.Tensor) -> torch.Tensor:
+    """(F, 256) ±1 descriptors -> (F,) int32 vocabulary word ids: argmax of
+    the ±1 products with the 512 words, first index on ties.  The products
+    are integers of magnitude <= 256, so an f32 matmul holds them exactly."""
+    vocab = torch.from_numpy(_VOCAB).to(desc_pm.device).to(torch.float32)
+    sim = desc_pm.to(torch.float32) @ vocab.T
+    return torch.argmax(sim, dim=-1).to(torch.int32)
 
 # Multi-table LSH signature: T tables x B sampled bits -> (T * 2^B,) histogram.
 LSH_TABLES = 64
@@ -94,3 +106,56 @@ def add_signature(db: PlaceDatabase, sig: torch.Tensor) -> PlaceDatabase:
         df=db.df + torch.where(fits, (q > 0).to(torch.float32), 0.0),
         count=db.count + fits.to(torch.int32),
     )
+
+
+def _idf_scores(db: PlaceDatabase, sig: torch.Tensor) -> torch.Tensor:
+    """idf-weighted cosine of `sig` against every stored signature: bins
+    present in most keyframes carry little evidence (weight log(N/df));
+    the weighted vectors are re-normalised, so scores stay in [0, 1]."""
+    n = torch.clamp(db.count.to(torch.float32), min=1.0)
+    idf = torch.log((1.0 + n) / (1.0 + db.df))
+    q = sig * idf
+    q = q / torch.clamp(torch.linalg.vector_norm(q), min=1e-9)
+    S = db.signatures.to(torch.float32)
+    num = S @ (idf * q)
+    norm2 = (S * S) @ (idf * idf)
+    return num / torch.sqrt(torch.clamp(norm2, min=1e-18))
+
+
+def _eligible(db: PlaceDatabase, exclude_recent: int) -> torch.Tensor:
+    kf_ids = torch.arange(db.signatures.shape[0], device=db.count.device)
+    return kf_ids < db.count - exclude_recent
+
+
+def query(db: PlaceDatabase, sig: torch.Tensor, exclude_recent: int = 10):
+    """(best keyframe id, its score) among all but the `exclude_recent`
+    newest keyframes; callers threshold the score."""
+    scores = torch.where(_eligible(db, exclude_recent), _idf_scores(db, sig), -1.0)
+    best = torch.argmax(scores)
+    return best.to(torch.int32), scores[best]
+
+
+def _topk(db: PlaceDatabase, scores: torch.Tensor, k: int, exclude_recent: int):
+    scores = torch.where(_eligible(db, exclude_recent), scores, -torch.inf)
+    top_scores, top_ids = topk_stable(scores, k)
+    good = torch.isfinite(top_scores)
+    return torch.where(good, top_ids.to(torch.int32), -1), torch.where(good, top_scores, -1.0)
+
+
+def query_topk(db: PlaceDatabase, sig: torch.Tensor, k: int = 4, exclude_recent: int = 10):
+    """Top-k candidates: ids (k,) int32 and scores (k,), id -1 and score -1
+    where fewer keyframes are eligible."""
+    return _topk(db, _idf_scores(db, sig), k, exclude_recent)
+
+
+def query_topk_with_ref(
+    db: PlaceDatabase, sig: torch.Tensor, k: int = 4, exclude_recent: int = 10, ref_window: int = 8
+):
+    """`query_topk` plus the adaptive floor: the lowest score among the
+    `ref_window` keyframes before the newest (the newest is the querying
+    keyframe itself), 0 when there are none."""
+    scores = _idf_scores(db, sig)
+    kf_ids = torch.arange(db.signatures.shape[0], device=db.count.device)
+    ref_ok = (kf_ids >= db.count - 1 - ref_window) & (kf_ids < db.count - 1)
+    ref_min = torch.min(torch.where(ref_ok, scores, torch.inf))
+    return (*_topk(db, scores, k, exclude_recent), torch.where(torch.isfinite(ref_min), ref_min, 0.0))

@@ -3,7 +3,10 @@
 
 Per frame: features + tracking, a host-side consistency gate and keyframe
 policy; on a keyframe: insertion, covisibility local BA, point fusion,
-periodic keyframe culling and the keyframe snapshot.  Capabilities of
+periodic keyframe culling and the keyframe snapshot.  A lost frame goes
+through the recovery tiers (reference-keyframe tracking, top-k
+relocalization, then the early-map reset or a coast on the prediction).
+Localization-only mode tracks against a frozen map.  Capabilities of
 later port slices raise `NotImplementedError` naming the slice (see
 ROADMAP.md queue A).
 """
@@ -20,9 +23,16 @@ import torch
 from .. import resolve_device
 from ..core.camera import backproject
 from . import map as mapmod
-from .local_mapping import cull_keyframes, fuse_map_points, local_ba_step, window_edge_budget
+from .local_mapping import (
+    cull_keyframes,
+    fuse_map_points,
+    global_ba_step,
+    local_ba_step,
+    window_edge_budget,
+)
 from .loop_closing import LoopState, empty_loop_state, grow_loop_state, snapshot_keyframe
 from .map import MapState
+from .relocalization import relocalize, track_reference_keyframe
 from .tracking import (
     FrameData,
     TrackingConfig,
@@ -63,6 +73,11 @@ class SlamSystem:
     ba_window: int = 8
     enable_objects: bool = False
     enable_loop_closing: bool = False
+    # Relocalization against the keyframe snapshots (always maintained).
+    enable_relocalization: bool = True
+    # Track and relocalize against the frozen map: no keyframes, no BA, no
+    # database growth, no automatic reset.
+    localization_only: bool = False
     detector: Optional[tuple] = None
     shape_prior: Optional[tuple] = None
     mesh: Optional[object] = None
@@ -79,19 +94,47 @@ class SlamSystem:
                                                  "track_ms": [], "ba_ms": []})
 
     def __post_init__(self):
-        for name, where in _LATER.items():
-            if getattr(self, name):
-                raise NotImplementedError(f"{name} arrives with ROADMAP {where}")
+        self._refuse_later()
         self.device = resolve_device(self.device)
         self.map_state = mapmod.empty_map(self.kmax, self.nmax, self.emax, self.device)
         self.loop_state = empty_loop_state(self.kmax, device=self.device)
         self.Tcw = np.eye(4, dtype=np.float32)
         self.velocity = np.eye(4, dtype=np.float32)
         self._kf_fresh = False
+        self._lost_streak = 0
+
+    def _refuse_later(self):
+        for name, where in _LATER.items():
+            if getattr(self, name):
+                raise NotImplementedError(f"{name} arrives with ROADMAP {where}")
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    def set_localization_mode(self, on: bool = True) -> None:
+        """Switch localization-only tracking against the frozen map on or
+        off.  Entering it drops the motion model, which is commonly stale."""
+        self.localization_only = bool(on)
+        if on:
+            self.velocity = np.eye(4, dtype=np.float32)
+
+    def reset(self) -> None:
+        """Drop the map and the snapshot store (rebuilt empty at their
+        current capacities, so snapshot slot k is again keyframe k) and
+        return to the uninitialized state; the next frame re-bootstraps."""
+        self.map_state = mapmod.empty_map(self.kmax, self.nmax, self.emax, self.device)
+        self.loop_state = empty_loop_state(self.kmax, device=self.device)
+        self.Tcw = np.eye(4, dtype=np.float32)
+        self.velocity = np.eye(4, dtype=np.float32)
+        self.initialized = False
+        self.frames_since_kf = 0
+        self.inliers_at_last_kf = 0
+        self._lost_streak = 0
+        self._kf_fresh = False
+        self.stats["kf_frames"] = []
+        self.stats["resets"] = self.stats.get("resets", 0) + 1
 
     # ------------------------------------------------------------------
     def track_rgbd(self, gray, depth, detections=None) -> np.ndarray:
@@ -117,7 +160,8 @@ class SlamSystem:
 
     def _post_track(self, frame: FrameData, res: TrackResult, Tcw_pred, t0) -> np.ndarray:
         """Host policy after tracking: one device->host transfer, the
-        consistency gate, velocity update and keyframe trigger."""
+        consistency gate, velocity update and keyframe trigger, or the
+        recovery tiers of a lost frame (which make reads of their own)."""
         cfg = self.cfg
         got = torch.cat([
             res.Tcw.reshape(16).to(torch.float64),
@@ -130,29 +174,70 @@ class SlamSystem:
         self.stats["track_ms"].append((time.perf_counter() - t0) * 1e3)
         # A solution far from the prediction is a repetitive-texture
         # mismatch, not tracking.
-        consistent = dev_t < 0.5 and dev_r < 0.5
+        tracked = bool(num_inliers >= cfg.min_track_inliers and dev_t < 0.5 and dev_r < 0.5)
         self.stats.setdefault("inliers", []).append(num_inliers)
-        if not (num_inliers >= cfg.min_track_inliers and consistent):
-            raise NotImplementedError(
-                "tracking lost: reference-keyframe tracking, relocalization and "
-                "the early-map reset arrive with ROADMAP slice 2"
-            )
-        self.velocity = (Tcw_new @ np.linalg.inv(self.Tcw)).astype(np.float32)
-        self.Tcw = Tcw_new
-        self.frames_since_kf += 1
-        if self._kf_fresh:
-            # First track against the replenished map sets the reference
-            # count for the ratio trigger.
-            self.inliers_at_last_kf = max(self.inliers_at_last_kf, num_inliers)
-            self._kf_fresh = False
-        if need_keyframe(
-            self.frames_since_kf, num_inliers, self.inliers_at_last_kf, cfg,
-            tracked_close=int(n_close_trk), untracked_close=int(n_close_new),
-        ):
-            self._insert_keyframe(frame, res)
+        self.stats.setdefault("track_ok", []).append(tracked)
+        if tracked:
+            self._lost_streak = 0
+            self.velocity = (Tcw_new @ np.linalg.inv(self.Tcw)).astype(np.float32)
+            self.Tcw = Tcw_new
+            self.frames_since_kf += 1
+            if self._kf_fresh:
+                # First track against the replenished map sets the reference
+                # count for the ratio trigger.
+                self.inliers_at_last_kf = max(self.inliers_at_last_kf, num_inliers)
+                self._kf_fresh = False
+            if not self.localization_only and need_keyframe(
+                self.frames_since_kf, num_inliers, self.inliers_at_last_kf, cfg,
+                tracked_close=int(n_close_trk), untracked_close=int(n_close_new),
+            ):
+                self._insert_keyframe(frame, res)
+        elif not self._recover(frame):
+            if (not self.localization_only and self._lost_streak >= 2
+                    and int(self.map_state.num_kfs) <= 5):
+                # Lost soon after initialization with nothing to recover
+                # against: the bootstrap is poisoned, so re-seed the map
+                # from this frame rather than coast.
+                self.reset()
+                self._initialize(frame)
+            else:
+                self.Tcw = np.asarray(Tcw_pred, dtype=np.float32)
         self.stats["frames"] += 1
         self.trajectory.append(self.Tcw.copy())
         return self.Tcw
+
+    def _recover(self, frame: FrameData) -> bool:
+        """Recovery tiers of a lost frame, in order: reference-keyframe
+        tracking seeded from the last pose (the motion model, not the map,
+        was wrong), then top-k relocalization.  True when one succeeded."""
+        cfg = self.cfg
+        self._lost_streak += 1
+        if int(self.loop_state.db.count) == 0:
+            return False
+        dev = self.device
+        r = track_reference_keyframe(
+            self.loop_state, self.map_state.kf_Tcw, int(self.map_state.num_kfs) - 1, frame,
+            torch.from_numpy(self.Tcw).to(dev), cfg,
+        )
+        if int(r.num_inliers) >= cfg.min_track_inliers:
+            Tr = r.Tcw.cpu().numpy()
+            self.velocity = (Tr @ np.linalg.inv(self.Tcw)).astype(np.float32)
+            self.Tcw = Tr
+            self._lost_streak = 0
+            self.frames_since_kf += 1
+            self.stats["ref_kf_recoveries"] = self.stats.get("ref_kf_recoveries", 0) + 1
+            return True
+        if not self.enable_relocalization:
+            return False
+        gen = torch.Generator(device=dev).manual_seed(900 + self.stats["frames"])
+        r = relocalize(self.loop_state, self.map_state.kf_Tcw, frame, cfg, gen)
+        if not bool(r.ok):
+            return False
+        self.Tcw = r.Tcw.cpu().numpy()
+        self.velocity = np.eye(4, dtype=np.float32)
+        self._lost_streak = 0
+        self.stats["relocalizations"] = self.stats.get("relocalizations", 0) + 1
+        return True
 
     # ------------------------------------------------------------------
     def _ensure_capacity(self, reserve_kfs: int = 1):
@@ -241,6 +326,19 @@ class SlamSystem:
             self.loop_state, frame.feats.desc_pm, frame.feats.valid,
             pts_cam, frame.depth > 0.0, frame.feats.xy, frame.feats.octave,
         )
+
+    # ------------------------------------------------------------------
+    def run_global_ba(self, iters: int = 10) -> None:
+        """Full-map point-only optimization outside loop closure (all
+        keyframes, keyframe 0 fixed, and all points), e.g. before saving a
+        map.  The joint and sharded variants belong to later slices."""
+        self._refuse_later()
+        if int(self.map_state.num_kfs) < 2:
+            return
+        self.map_state = global_ba_step(self.map_state, self.cfg, iters=iters)
+        self._sync()
+        self.Tcw = self.map_state.kf_Tcw[int(self.map_state.num_kfs) - 1].cpu().numpy()
+        self.velocity = np.eye(4, dtype=np.float32)
 
     # ------------------------------------------------------------------
     def summary(self) -> dict:

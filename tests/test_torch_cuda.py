@@ -6,8 +6,10 @@ one; this file imports no JAX, so it also runs where JAX is not installed:
 
 Tolerances: K1 bitwise equal to its plain version (single image and whole
 pyramid), one launch per call; K2 exact, including rows at distance 0 and
-256; a short tracking run on the card keeps every camera centre within
-1 cm of the same run on the CPU.
+256, also at the recovery shapes; a short tracking run on the card keeps
+every camera centre within 1 cm of the same run on the CPU; relocalization
+on the card picks the CPU run's winner on the same hypothesis draws (inlier
+rows agree but for a few at the chi2 threshold), pose within 1e-3 m.
 """
 
 import numpy as np
@@ -25,8 +27,12 @@ from qsp_slam_tpu_torch.ops.fast_nms import (
     fast_score_nms_pyramid_plain,
 )
 from qsp_slam_tpu_torch.ops.hamming import hamming_packed, hamming_packed_plain
+from qsp_slam_tpu_torch.core.camera import backproject
+from qsp_slam_tpu_torch.frontend.pnp import pnp_sample
+from qsp_slam_tpu_torch.slam.loop_closing import empty_loop_state, snapshot_keyframe
+from qsp_slam_tpu_torch.slam.relocalization import relocalize
 from qsp_slam_tpu_torch.slam.system import SlamSystem
-from qsp_slam_tpu_torch.slam.tracking import TrackingConfig
+from qsp_slam_tpu_torch.slam.tracking import TrackingConfig, process_frame
 
 pytestmark = pytest.mark.cuda
 
@@ -81,7 +87,8 @@ def test_fast_nms_pyramid_kernel_matches_plain(gen, which):
             assert torch.equal(m, r), (tuple(img.shape), t)
 
 
-HAMMING_SHAPES = ((8192, 4000), (2048, 2048), (70, 130), (1, 1), (513, 127), (129, 4001), (4000, 3))
+HAMMING_SHAPES = ((8192, 4000), (2048, 2048), (70, 130), (1, 1), (513, 127), (129, 4001), (4000, 3),
+                  (4000, 384), (1536, 4000))
 
 
 def test_hamming_kernel_matches_plain(gen):
@@ -145,3 +152,36 @@ def test_short_run_matches_cpu(gen):
                        np.stack(s.trajectory)[:, :3, 3].astype(np.float64)) for d, s in runs.items()}
     assert np.linalg.norm(p["cuda"] - p["cpu"], axis=1).max() < 0.01
     assert runs["cuda"].stats["kf_frames"] == runs["cpu"].stats["kf_frames"]
+
+
+def test_relocalize_matches_cpu(gen):
+    """Three keyframe snapshots and a query frame between them; the card and
+    the CPU run on the same hypothesis indices (drawn on the CPU: the two
+    devices' generators give different streams for one seed)."""
+    cfg = TrackingConfig(orb=OrbConfig(num_features=2000))
+    traj = orbit_trajectory(14)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        room = make_room(device=dev)
+        ls = empty_loop_state(8, device=dev)
+        for i in (0, 6, 12):
+            f = process_frame(*render_frame(room, traj[i], cfg.intr), cfg)
+            ls = snapshot_keyframe(ls, f.feats.desc_pm, f.feats.valid,
+                                   backproject(f.feats.xy, f.depth, cfg.intr), f.depth > 0, f.feats.xy)
+        kf = torch.eye(4, device=dev).repeat(8, 1, 1)
+        kf[:3] = torch.from_numpy(traj[[0, 6, 12]]).to(dev)
+        query = process_frame(*render_frame(room, traj[7], cfg.intr), cfg)
+        cpu_gen = torch.Generator().manual_seed(907)
+
+        def draw(valid, _gen, num_hyp, cpu_gen=cpu_gen):
+            return [x.to(valid.device) for x in pnp_sample(valid.cpu(), cpu_gen, num_hyp)]
+
+        res[dev] = relocalize(ls, kf, query, cfg, None, draw=draw)
+    cpu, card = res["cpu"], res["cuda"]
+    assert bool(cpu.ok) and bool(card.ok)
+    # The same winner: its snapshot rows are the inliers of both runs (a
+    # row at the chi2 threshold may fall either way).
+    assert abs(int(card.num_inliers) - int(cpu.num_inliers)) <= 2
+    assert (card.inliers.cpu() == cpu.inliers).float().mean() > 0.98
+    c = [-(r.Tcw[:3, :3].T @ r.Tcw[:3, 3]).cpu().double() for r in (cpu, card)]
+    assert float(torch.linalg.vector_norm(c[0] - c[1])) < 1e-3
