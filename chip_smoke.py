@@ -16,7 +16,9 @@ Phases (any failure exits non-zero and prints no result line):
      (4000, 3), with rows planted at distance 0 and 256: exactly equal;
   4. the main path: `SlamSystem.track_rgbd` on 60 rendered frames
      (uint8 gray, uint16 depth at scale 5000) with 4000 features at
-     640x480, default capacities, objects and loop closing off.  Launch
+     640x480, default capacities, objects off and loop closing at its
+     default (on: from keyframe 12 on, each keyframe runs the place query
+     and the consistency gate).  Launch
      counters are zeroed just before and read just after; K1 must launch
      once per frame and K2 at least once; ATE < 0.05 m and >= 2 keyframes;
   5. the same path on 10 frames at 500 features on the card and, as the
@@ -39,12 +41,33 @@ Phases (any failure exits non-zero and prints no result line):
      tier are counted; K2 at the recovery shapes (4000, 384) and
      (1536, 4000) is held exactly to its plain version (planted rows at
      distance 0 and 256, and the stacked snapshot table of the teleport's
-     relocalization) and timed alone.
-Paths 4, 7 and 8 each zero the launch counters just before and read them
-just after.  With `--profile DIR`: a torch.profiler table of main-path
-frames 12-19 in DIR, the device's busy share of that window, each kernel's
+     relocalization) and timed alone;
+  9. the KITTI stereo path: the port's `make_kitti` writes a 60-frame
+     forward drive at 1241x376 (seed 2, baseline 0.54 m, fx = 0.58 * 1241)
+     and `run_kitti.main` runs it at its defaults (2000 features, 8 levels,
+     kmax 128, nmax 16384, emax 131072, local map 8192, depth_max 60) with
+     `--poses` and `--save-dir`: ms/frame, ATE < 0.6 m, RPE < 0.25 m per
+     frame, >= 4 keyframes, K1 once per stereo frame, K2 launches per
+     shape.  Then 10 frames of a 192x624 drive at 500 features on the card
+     and on the CPU: camera centres within 1 cm, the same keyframes;
+ 10. loop closing on the miniature circuit of `tests/test_loop_drive.py`
+     (240 frames at 128x416, 6 levels, 1000 features, step 0.6 m, seed 5,
+     loop overlap 90, kmax 64): `SlamSystem.track_stereo` on the port's
+     `make_kitti --loop` output must close a loop with >= 40 inliers, and
+     the corrected keyframe ATE must beat min(2.0 m, the frozen per-frame
+     ATE).  CUDA events time every verification and every correction
+     (pose graph, then global BA).
+  K1 and K2 at the stereo shapes: K1 bitwise over one 16-level launch on a
+  1241x376 stereo pair; K2 exactly equal to plain with planted rows at
+  (2000, 2000) left-right, (8192, 2000) tracking, (2000, 384) and
+  (1000, 384) loop verification; each timed beside its plain version, its
+  bound and the library yardsticks.
+Paths 4, 7, 8, 9 and 10 each zero the launch counters just before and
+read them just after.  With `--profile DIR`: torch.profiler tables in DIR
+of main-path frames 12-19 and of KITTI-drive frames 12-19 (phase 9's
+configuration), the device's busy share of each window, each kernel's
 device time per launch there, and each kernel's device time per call alone
-at the phase-6 and recovery shapes.  Then a `{"kernels": [...]}` line, the
+at the phase-6, recovery and stereo shapes.  Then a `{"kernels": [...]}` line, the
 card line again, and as the last line `{"ok": true, "device": {...}}`.
 """
 
@@ -63,16 +86,17 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from qsp_slam_tpu_torch import run_tum  # noqa: E402
+from qsp_slam_tpu_torch import run_kitti, run_tum  # noqa: E402
 from qsp_slam_tpu_torch.core import lie  # noqa: E402
-from qsp_slam_tpu_torch.data import make_tum, native_loader  # noqa: E402
+from qsp_slam_tpu_torch.data import make_kitti, make_tum, native_loader  # noqa: E402
+from qsp_slam_tpu_torch.data.kitti import KittiSequence  # noqa: E402
 from qsp_slam_tpu_torch.data.io import load_trajectory_tum  # noqa: E402
 from qsp_slam_tpu_torch.data.render import make_room, orbit_trajectory, render_frame  # noqa: E402
 from qsp_slam_tpu_torch.data.tum import TumSequence  # noqa: E402
 from qsp_slam_tpu_torch.eval.ate import ate_rmse, positions_from_Tcw  # noqa: E402
 from qsp_slam_tpu_torch.frontend.matcher import pack_pm  # noqa: E402
 from qsp_slam_tpu_torch.frontend.orb import OrbConfig  # noqa: E402
-from qsp_slam_tpu_torch.frontend.pyramid import build_pyramid  # noqa: E402
+from qsp_slam_tpu_torch.frontend.pyramid import PyramidConfig, build_pyramid  # noqa: E402
 from qsp_slam_tpu_torch.ops import build  # noqa: E402
 from qsp_slam_tpu_torch.ops.fast_nms import (  # noqa: E402
     fast_score_nms,
@@ -81,6 +105,7 @@ from qsp_slam_tpu_torch.ops.fast_nms import (  # noqa: E402
     fast_score_nms_pyramid_plain,
 )
 from qsp_slam_tpu_torch.ops.hamming import hamming_packed, hamming_packed_plain  # noqa: E402
+from qsp_slam_tpu_torch.slam import system as system_mod  # noqa: E402
 from qsp_slam_tpu_torch.slam.system import SlamSystem  # noqa: E402
 from qsp_slam_tpu_torch.slam.tracking import TrackingConfig, process_frame  # noqa: E402
 
@@ -91,6 +116,9 @@ INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 K2_SHAPES = ((8192, 4000), (2048, 2048), (70, 130), (1, 1), (513, 127), (129, 4001), (4000, 3))
 FRAMES = 60  # main-path frames; the first 10 are warm-up
 SNAP, RELOC_K = 384, 4  # keyframe snapshot rows, relocalization candidates
+KITTI_FRAMES, KITTI_H, KITTI_W, KITTI_F = 60, 376, 1241, 2000  # phase 9 at run_kitti's defaults
+STEREO_K2 = ((KITTI_F, KITTI_F), (8192, KITTI_F), (KITTI_F, SNAP), (1000, SNAP))
+KERNEL_NAMES = ("fast_score_nms_pyramid_kernel", "hamming_mma_kernel")  # as the profiler names them
 
 
 def log(*a):
@@ -330,6 +358,224 @@ def recovery_path(cfg, frames, Tcw_gt, sysm_main, profile: Path | None) -> dict:
             "k2": times, "k2_inputs": k2_in}
 
 
+def stereo_cfg(seq: KittiSequence, num_features: int, levels: int = 8) -> TrackingConfig:
+    """`run_kitti`'s configuration for a sequence."""
+    intr = seq.intrinsics
+    H, W = seq.load_gray_pair(0)[0].shape
+    return TrackingConfig(
+        orb=OrbConfig(num_features=num_features, pyramid=PyramidConfig(num_levels=levels, height=H, width=W)),
+        fx=float(intr["fx"]), fy=float(intr["fy"]), cx=float(intr["cx"]), cy=float(intr["cy"]),
+        width=W, height=H, baseline=seq.baseline, depth_max=60.0, local_map_budget=8192)
+
+
+def kitti_path(tmp: str, keep: int) -> dict:
+    """Phase 9: fabricate a forward drive at KITTI's size, run the KITTI
+    command line on it; then the card against the CPU on a small drive.
+    Returns the numbers, the first stereo pair (for the K1 check), and the
+    drive's configuration and first `keep` pairs (for the profile)."""
+    seq_dir, out_dir, poses = (os.path.join(tmp, n) for n in ("kitti", "kitti_out", "kitti_poses.txt"))
+    t0 = time.perf_counter()
+    make_kitti.main([seq_dir, "--frames", str(KITTI_FRAMES), "--height", str(KITTI_H), "--width", str(KITTI_W),
+                     "--seed", "2", "--poses-out", poses])
+    make_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = run_kitti.main([seq_dir, "--poses", poses, "--save-dir", out_dir])
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    report = json.loads(Path(out_dir, "report.json").read_text())
+    log(f"phase 9 KITTI command line: {KITTI_FRAMES} frames at {KITTI_W}x{KITTI_H}, {KITTI_F} features "
+        f"(make_kitti {make_s:.1f} s): {wall_ms / KITTI_FRAMES:.3f} ms/frame end to end (decode, tracking, saves; "
+        f"track median {out['track_ms_median']:.3f}, BA median {out['ba_ms_median']}), {out['keyframes']} keyframes, "
+        f"ATE {out['ate_rmse_m']:.5f} m, RPE {out['rpe_trans_rmse']:.5f} m / {out['rpe_rot_rmse_deg']:.4f} deg per "
+        f"frame, keyframe ATE {out.get('kf_ate_rmse_m')}, loops {out['loops_closed']}, loop scan rows "
+        f"{len(report['loop_scan'])}, resets {report['resets']}, relocalizations {report['relocalizations']}, "
+        f"peak RSS {report['peak_rss_mb']} MB; launches {counts}")
+    if not (out["ate_rmse_m"] < 0.6 and out["rpe_trans_rmse"] < 0.25 and out["keyframes"] >= 4):
+        raise AssertionError(f"KITTI path failed: {out}")
+    if counts["fast_nms"] != KITTI_FRAMES or counts["hamming"] < 1:
+        raise AssertionError(f"KITTI path: K1 must launch once per stereo frame: {counts}")
+    drive = KittiSequence(seq_dir)
+    first_pair = [torch.from_numpy(g).cuda() for g in drive.load_gray_pair(0)]
+    kept = {"cfg": stereo_cfg(drive, KITTI_F), "pairs": [drive.load_gray_pair(i) for i in range(keep)]}
+
+    # The card against the CPU on a small drive.
+    small_dir = os.path.join(tmp, "kitti_small")
+    make_kitti.main([small_dir, "--frames", "10", "--seed", "2"])
+    seq = KittiSequence(small_dir)
+    cfg = stereo_cfg(seq, 500)
+    pairs = list(seq.prefetch_pairs(range(10)))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        runs[dev] = SlamSystem(cfg, kmax=16, nmax=4096, emax=32768, device=dev)
+        for gl, gr in pairs:
+            runs[dev].track_stereo(gl, gr)
+    p = {dev: positions_from_Tcw(np.stack(r.trajectory).astype(np.float64)) for dev, r in runs.items()}
+    gap = float(np.linalg.norm(p["cuda"] - p["cpu"], axis=1).max())
+    log(f"  stereo card vs CPU reference, 10 frames at 500 features, 624x192: max centre gap {gap:.2e} m, "
+        f"keyframes {runs['cuda'].stats['kf_frames']} vs {runs['cpu'].stats['kf_frames']}")
+    if gap > 0.01 or runs["cuda"].stats["kf_frames"] != runs["cpu"].stats["kf_frames"]:
+        raise AssertionError("stereo card and CPU runs disagree")
+    return {"ms_per_frame": wall_ms / KITTI_FRAMES, "launches": counts, "out": out, "pair": first_pair,
+            "cpu_gap_m": gap, "kept": kept}
+
+
+class EventTimes:
+    """CUDA-event times of the loop closer's stages: every verification,
+    and every correction from the pose graph to the end of the global BA.
+    Installed over the system module's names, so the facade's own calls
+    are timed."""
+
+    def __init__(self):
+        self.verify, self.correct = [], []
+        self._saved = {n: getattr(system_mod, n) for n in ("verify_loop", "correct_loop", "global_ba_step")}
+        self._start = None
+
+    def _event(self):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def __enter__(self):
+        verify, correct, gba = (self._saved[n] for n in ("verify_loop", "correct_loop", "global_ba_step"))
+
+        def timed_verify(*a, **k):
+            e0 = self._event()
+            out = verify(*a, **k)
+            e1 = self._event()
+            torch.cuda.synchronize()
+            self.verify.append(e0.elapsed_time(e1))
+            return out
+
+        def timed_correct(*a, **k):
+            self._start = self._event()
+            return correct(*a, **k)
+
+        def timed_gba(*a, **k):
+            out = gba(*a, **k)
+            e1 = self._event()
+            torch.cuda.synchronize()
+            self.correct.append(self._start.elapsed_time(e1))
+            return out
+
+        system_mod.verify_loop, system_mod.correct_loop, system_mod.global_ba_step = (
+            timed_verify, timed_correct, timed_gba)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._saved.items():
+            setattr(system_mod, n, fn)
+
+
+def loop_path(tmp: str) -> dict:
+    """Phase 10: the miniature circuit through `SlamSystem.track_stereo`."""
+    root = os.path.join(tmp, "circuit")
+    n = 240
+    make_kitti.make_kitti_sequence(root, num_frames=n, num_cars=6, height=128, width=416, step=0.6, seed=5,
+                                   loop=True, loop_overlap=90, poses_out=os.path.join(root, "poses.txt"))
+    seq = KittiSequence(root, os.path.join(root, "poses.txt"))
+    # 6 levels: at 128 px the 8-level top is smaller than the descriptor window.
+    cfg = stereo_cfg(seq, 1000, levels=6)
+    pairs = list(seq.prefetch_pairs(range(n)))
+    sysm = SlamSystem(cfg, kmax=64, nmax=16384, emax=131072)
+    torch.cuda.synchronize()
+    zero_counts()
+    with EventTimes() as ev:
+        t0 = time.perf_counter()
+        for gl, gr in pairs:
+            sysm.track_stereo(gl, gr)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    gt = np.stack([np.linalg.inv(seq.poses[i]) for i in range(n)])
+    kf_frames = np.asarray(sysm.stats["kf_frames"])
+    n_kf = int(sysm.map_state.num_kfs)
+    live = sysm.map_state.kf_valid[:n_kf].cpu().numpy()
+    kf_ate = ate_rmse(sysm.map_state.kf_Tcw[:n_kf].cpu().numpy()[live], gt[kf_frames[live]])
+    frozen_ate = ate_rmse(np.stack(sysm.trajectory), gt)
+    events = sysm.stats.get("loop_events", [])
+    log(f"phase 10 loop closing, {n}-frame circuit at 416x128: {wall_ms / n:.3f} ms/frame, "
+        f"{sysm.stats['keyframes']} keyframes, loops {sysm.loops_closed} {events}, corrected keyframe ATE "
+        f"{kf_ate:.4f} m vs frozen per-frame ATE {frozen_ate:.4f} m, resets {sysm.stats.get('resets', 0)}, "
+        f"relocalizations {sysm.stats.get('relocalizations', 0)}, verifications {len(ev.verify)}; launches {counts}")
+    log(f"  verification ms by events: {[round(t, 3) for t in ev.verify]}; correction (pose graph + global BA) "
+        f"ms by events: {[round(t, 3) for t in ev.correct]}")
+    if sysm.loops_closed < 1 or events[0][2] < 40 or not kf_ate < min(2.0, frozen_ate):
+        raise AssertionError(f"loop closing failed: loops {sysm.loops_closed}, events {events}, "
+                             f"kf ATE {kf_ate}, frozen {frozen_ate}, scan tail {sysm.stats.get('loop_scan', [])[-12:]}")
+    if counts["fast_nms"] != n or counts["hamming_shapes"].get(f"1000x{SNAP}", 0) < len(ev.verify):
+        raise AssertionError(f"loop path launches: {counts}")
+    return {"ms_per_frame": wall_ms / n, "launches": counts, "loops": sysm.loops_closed, "events": events,
+            "kf_ate_m": kf_ate, "frozen_ate_m": frozen_ate, "verify_ms": ev.verify, "correct_ms": ev.correct}
+
+
+def stereo_kernels(pair, gen) -> dict:
+    """K1 over one 16-level launch on a KITTI-size stereo pair and K2 at
+    the stereo shapes, each against its plain version, then timed."""
+    orb = OrbConfig(num_features=KITTI_F, pyramid=PyramidConfig(height=KITTI_H, width=KITTI_W))
+    ths = (orb.fast_threshold, orb.fast_threshold_min)
+    levels = build_pyramid(pair[0].float(), orb.pyramid) + build_pyramid(pair[1].float(), orb.pyramid)
+    before = fast_score_nms_pyramid.launches
+    got = fast_score_nms_pyramid(levels, ths)
+    torch.cuda.synchronize()
+    if fast_score_nms_pyramid.launches != before + 1 or len(levels) != 16:
+        raise AssertionError("the stereo pair's 16 levels did not go in one launch")
+    err = 0.0
+    for img, maps, refs in zip(levels, got, fast_score_nms_pyramid_plain(levels, ths)):
+        for m, r in zip(maps, refs):
+            err = max(err, float((m - r).abs().max()))
+            if not torch.equal(m, r):
+                raise AssertionError(f"K1 differs from plain on the stereo pair, level {tuple(img.shape)}")
+    px = sum(im.numel() for im in levels)
+    k1_s = {"bytes": px * 4 * (1 + len(ths)) / HBM_BYTES_PER_S,
+            "operations": px * len(ths) * K1_OPS_PER_PX / FP32_OPS_PER_S}
+    k1 = {"ms": cuda_ms(lambda: fast_score_nms_pyramid(levels, ths), 200),
+          "plain_ms": cuda_ms(lambda: fast_score_nms_pyramid_plain(levels, ths), 5),
+          "bound_ms": max(k1_s.values()) * 1e3, "bound_by": max(k1_s, key=k1_s.get), "library_ms": None,
+          "max_abs_err": err, "unit": f"one stereo frame at {KITTI_W}x{KITTI_H}: one launch over 2 x 8 levels "
+                                      "x 2 thresholds"}
+    log(f"K1 on a {KITTI_W}x{KITTI_H} stereo pair: 16 levels in one launch, bitwise equal to plain; {k1}")
+    k2, k2_in = {}, {}
+    for A, B in STEREO_K2:
+        a, b, rows, even = planted_words(A, B, gen)
+        check_k2(a, b, f"stereo shape ({A}, {B})", rows, even)
+        k2[f"at_{A}x{B}"] = k2_times(a, b, gen, 100)
+        k2_in[(A, B)] = (a, b)
+        log(f"  K2 at ({A}, {B}), exactly equal to plain (planted rows at 0 and 256): {k2[f'at_{A}x{B}']}")
+    return {"k1": k1, "k2": k2, "levels": levels, "ths": ths, "k2_inputs": k2_in}
+
+
+def profiled_window(track, inputs, path: Path, what: str) -> None:
+    """`track(*x)` for each x of `inputs` under torch.profiler: the operator
+    table goes to `path`; the device's busy share of the window and each
+    kernel's device time per launch are logged."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x in inputs:
+            track(*x)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    path.write_text(events.table(sort_by="cuda_time_total", row_limit=60))
+    # Kernel rows only: an operator's row repeats its kernels' time.
+    busy_us = sum(self_dev_us(e) for e in events if e.device_type == DeviceType.CUDA)
+    log(f"profile of {what} (written to {path}): window {window_us / 1e3:.1f} ms, "
+        f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / window_us:.1f}%)")
+    for e in events:
+        for name in KERNEL_NAMES:
+            if name in e.key and self_dev_us(e) > 0:
+                log(f"  device time of {name}: {e.count} launches, {self_dev_us(e) / e.count:.2f} us each")
+
+
+def self_dev_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+
 def render_sequence(n: int, cfg, device):
     """Rendered frames as a camera delivers them: uint8 gray, uint16 depth."""
     room = make_room(device=device)
@@ -504,6 +750,19 @@ def main() -> int:
     if prof_dir:
         prof_dir.mkdir(parents=True, exist_ok=True)
     rec = recovery_path(cfg, frames, Tcw_gt, sysm, profile=prof_dir)
+    # 9-10. the KITTI stereo path and loop closing ----------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        kit = kitti_path(tmp, keep=20 if prof_dir else 0)
+        loop = loop_path(tmp)
+    st = stereo_kernels(kit.pop("pair"), gen)
+    kernels[0]["launches_kitti_path"] = kit["launches"]["fast_nms"]
+    kernels[0]["launches_loop_path"] = loop["launches"]["fast_nms"]
+    kernels[0]["stereo_pair"] = st["k1"]
+    kernels[1]["launches_kitti_path"] = kit["launches"]["hamming_shapes"]
+    kernels[1]["launches_loop_path"] = loop["launches"]["hamming_shapes"]
+    kernels[1]["stereo"] = st["k2"] | {
+        "unit": "ms of one call at (left, right features), (local map, features), (features, snapshot rows) "
+                "at 2000 and 1000 features"}
     kernels[0]["launches_tum_path"] = tum["launches"]["fast_nms"]
     kernels[1]["launches_tum_path"] = tum["launches"]["hamming"]
     kernels[1]["recovery"] = {
@@ -518,38 +777,22 @@ def main() -> int:
                 "launches per (A, B) in that frame",
     }
 
-    if args.profile:
+    if prof_dir:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        out = Path(args.profile)
-        out.mkdir(parents=True, exist_ok=True)
         sysm2 = SlamSystem(cfg, device="cuda")
         for g8, d16 in frames[:12]:
             sysm2.track_rgbd(g8, d16)
         torch.cuda.synchronize()
-        kf_before = sysm2.stats["keyframes"]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for g8, d16 in frames[12:20]:
-                sysm2.track_rgbd(g8, d16)
-            torch.cuda.synchronize()
-            window_us = (time.perf_counter() - t0) * 1e6
-        events = prof.key_averages()
-        (out / "profile.txt").write_text(events.table(sort_by="cuda_time_total", row_limit=60))
-        def self_dev_us(e):
-            return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
-
-        # Kernel rows only: an operator's row repeats its kernels' time.
-        busy_us = sum(self_dev_us(e) for e in events if e.device_type == DeviceType.CUDA)
-        log(f"profile of frames 12-19 (written to {out / 'profile.txt'}): window {window_us / 1e3:.1f} ms, "
-            f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / window_us:.1f}%), "
-            f"keyframes in window {sysm2.stats['keyframes'] - kf_before}")
-        kernel_names = ("fast_score_nms_pyramid_kernel", "hamming_mma_kernel")
-        for e in events:
-            for name in kernel_names:
-                if name in e.key and self_dev_us(e) > 0:
-                    log(f"  device time of {name}: {e.count} launches, {self_dev_us(e) / e.count:.2f} us each")
+        profiled_window(sysm2.track_rgbd, frames[12:20], prof_dir / "profile.txt", "main-path frames 12-19")
+        pairs = kit["kept"]["pairs"]
+        sysm3 = SlamSystem(kit["kept"]["cfg"], kmax=128, nmax=16384, emax=131072, device="cuda")
+        for gl, gr in pairs[:12]:
+            sysm3.track_stereo(gl, gr)
+        torch.cuda.synchronize()
+        profiled_window(sysm3.track_stereo, pairs[12:20], prof_dir / "profile_kitti.txt",
+                        f"KITTI-drive frames 12-19 at {KITTI_W}x{KITTI_H}, {KITTI_F} features")
 
         # Each kernel alone, `reps` back-to-back calls per shape in one
         # profiled window: device time per call, which the events of phase 6
@@ -559,17 +802,21 @@ def main() -> int:
         # its records from the end of the window, in launch order.  (Windows
         # of their own per shape lost records too.)
         reps = 50
-        alone = [("K1, one frame (8 levels x 2 thresholds)", kernel_names[0],
-                  lambda: fast_score_nms_pyramid(levels, ths))]
-        for (A, B), (a, b) in [(sh, k2_in[sh]) for sh in ((8192, 4000), (2048, 2048))] + list(rec["k2_inputs"].items()):
-            alone.append((f"K2 at ({A}, {B})", kernel_names[1], lambda a=a, b=b: hamming_packed(a, b)))
+        alone = [("K1, one frame (8 levels x 2 thresholds)", KERNEL_NAMES[0],
+                  lambda: fast_score_nms_pyramid(levels, ths)),
+                 (f"K1, one {KITTI_W}x{KITTI_H} stereo pair (2 x 8 levels x 2 thresholds)", KERNEL_NAMES[0],
+                  lambda: fast_score_nms_pyramid(st["levels"], st["ths"]))]
+        k2_all = [(sh, k2_in[sh]) for sh in ((8192, 4000), (2048, 2048))]
+        k2_all += list(rec["k2_inputs"].items()) + list(st["k2_inputs"].items())
+        for (A, B), (a, b) in k2_all:
+            alone.append((f"K2 at ({A}, {B})", KERNEL_NAMES[1], lambda a=a, b=b: hamming_packed(a, b)))
         with profile(activities=[ProfilerActivity.CUDA]) as pr:
             for fn in [alone[0][2]] * 300 + [fn for _, _, fn in alone for _ in range(reps)]:
                 fn()
             torch.cuda.synchronize()
         launched = sorted((e for e in pr.events() if e.device_type == DeviceType.CUDA),
                           key=lambda e: e.time_range.start)
-        seen = {n: [e.time_range.elapsed_us() for e in launched if n in e.name] for n in kernel_names}
+        seen = {n: [e.time_range.elapsed_us() for e in launched if n in e.name] for n in KERNEL_NAMES}
         per_call = {}
         for what, name, _ in reversed(alone):
             per_call[what], seen[name] = seen[name][-reps:], seen[name][:-reps]

@@ -1,11 +1,12 @@
-"""SO(3)/SE(3) exponential and logarithm maps, batched over leading dims.
+"""SO(3)/SE(3)/Sim(3) exponential and logarithm maps, batched over
+leading dims.
 
-Counterpart of `qsp_slam_tpu/core/lie.py` (the SE(3) half and the
-quaternion helpers of the trajectory formats; Sim(3) arrives with the
-loop-closing slice).  Same conventions:
-se(3) tangent xi = [v(3), w(3)], translation first; rotations are 3x3
-matrices, rigid transforms (..., 4, 4); Taylor-guarded small-angle
-branches so theta == 0 is exact and NaN-free.
+Counterpart of `qsp_slam_tpu/core/lie.py`.  Same conventions:
+se(3) tangent xi = [v(3), w(3)], translation first; sim(3) appends the
+log-scale s; rotations are 3x3 matrices, transforms (..., 4, 4); Taylor
+guards are `torch.where` selections, so theta == 0 is exact and NaN-free
+and the functions trace under `torch.func.jacfwd` and `vmap` (no host
+reads, no branch on a value).
 """
 
 from __future__ import annotations
@@ -96,7 +97,9 @@ def log_so3(R: torch.Tensor) -> torch.Tensor:
     axis2 = torch.clamp((diag + (1.0 - trace[..., None])) / denom_pi, min=0.0)
     axis = torch.sqrt(axis2 + 1e-24)
     jmax = torch.argmax(axis2, dim=-1)
-    onehot = F.one_hot(jmax, 3).to(R.dtype)
+    # One-hot by comparison (F.one_hot checks its indices on the host,
+    # which `torch.func.vmap` cannot trace).
+    onehot = (jmax[..., None] == torch.arange(3, device=R.device)).to(R.dtype)
     M = S - (2.0 * cos_t)[..., None, None] * torch.eye(3, dtype=R.dtype, device=R.device)
     prods = torch.einsum("...ij,...j->...i", M, onehot)
     sgn = torch.where(prods < 0.0, -1.0, 1.0)
@@ -173,6 +176,68 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     return pts @ R.transpose(-1, -2) + t[..., None, :]
+
+
+def adjoint_se3(T: torch.Tensor) -> torch.Tensor:
+    """Adjoint of SE(3) acting on [v, w] tangents: (..., 6, 6)."""
+    R = T[..., :3, :3]
+    tR = hat(T[..., :3, 3]) @ R
+    top = torch.cat([R, tR], dim=-1)
+    bottom = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# Sim(3): tangent xi = [v(3), w(3), s], top-left block exp(s) R.
+# ---------------------------------------------------------------------------
+
+
+def _cbrt(x: torch.Tensor) -> torch.Tensor:
+    """Real cube root, sign kept (`jnp.cbrt`)."""
+    return torch.sign(x) * torch.abs(x) ** (1.0 / 3.0)
+
+
+def _sim3_W(w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The matrix W with t = W v: the series sum_n B^n / (n+1)! of
+    B = s I + hat(w), 20 terms.  Branch-free and smooth at s = 0 and w = 0,
+    where the closed form cancels catastrophically in f32."""
+    B = hat(w) + s[..., None, None] * torch.eye(3, dtype=w.dtype, device=w.device)
+    W = term = _eye3(B)
+    for n in range(1, 20):
+        term = term @ B / (n + 1)
+        W = W + term
+    return W
+
+
+def exp_sim3(xi: torch.Tensor) -> torch.Tensor:
+    """Sim(3) exponential. xi = [v, w, s]: (..., 7) -> (..., 4, 4) with
+    exp(s) R top-left."""
+    v, w, s = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    t = torch.einsum("...ij,...j->...i", _sim3_W(w, s), v)
+    return rt_to_se3(torch.exp(s)[..., None, None] * exp_so3(w), t)
+
+
+def log_sim3(T: torch.Tensor) -> torch.Tensor:
+    """Sim(3) logarithm: (..., 4, 4) with sR top-left -> [v, w, s] (..., 7)."""
+    sR = T[..., :3, :3]
+    scale = _cbrt(torch.linalg.det(sR))
+    s = torch.log(scale)
+    w = log_so3(sR / scale[..., None, None])
+    v = torch.linalg.solve(_sim3_W(w, s), T[..., :3, 3:4])[..., 0]
+    return torch.cat([v, w, s[..., None]], dim=-1)
+
+
+def sim3_scale(T: torch.Tensor) -> torch.Tensor:
+    """The scale of a Sim(3) matrix (..., 4, 4) -> (...)."""
+    return _cbrt(torch.linalg.det(T[..., :3, :3]))
+
+
+def inv_sim3(T: torch.Tensor) -> torch.Tensor:
+    """Inverse of a similarity transform (sR | t); rows of sR have norm s."""
+    sR = T[..., :3, :3]
+    s2 = torch.sum(sR[..., 0, :] * sR[..., 0, :], dim=-1)
+    inv_sR = sR.transpose(-1, -2) / s2[..., None, None]
+    return rt_to_se3(inv_sR, -torch.einsum("...ij,...j->...i", inv_sR, T[..., :3, 3]))
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
-"""Synthetic RGB-D frames: a textured box room, ray-cast per pixel
-(counterpart of `qsp_slam_tpu/data/render.py`: `make_room`,
-`orbit_trajectory`, `render_frame`).  The textures come from the same
-seeded numpy generator, so both packages render the same room.
+"""Synthetic frames: a textured box room with ellipsoid objects, ray-cast
+per pixel (counterpart of `qsp_slam_tpu/data/render.py`: `make_room`,
+`make_scene`, `orbit_trajectory`, `render_frame`, `render_scene`).  The
+textures and object placements come from the same seeded numpy
+generators, so both packages render the same scene.  Table slabs
+(`num_tables > 0`) arrive with the objects slice.
 """
 
 from __future__ import annotations
@@ -117,6 +119,130 @@ def render_frame(
         + samp(v0 + 1, u0 + 1) * fu * fv
     )
     return g, depth
+
+
+class Scene(NamedTuple):
+    """Room + ellipsoid objects (world-frame minimal vectors: centre, XYZ
+    Euler angles, half-axes)."""
+
+    room: BoxRoom
+    ellipsoids: torch.Tensor  # (O, 9)
+    labels: torch.Tensor  # (O,) int32 semantic labels
+    albedo: torch.Tensor  # (O,) f32 base gray value
+
+
+def make_scene(
+    num_objects: int = 4,
+    seed: int = 1,
+    half_extent=(4.0, 2.2, 4.0),
+    num_tables: int = 0,
+    half_range=((0.12, 0.10, 0.12), (0.35, 0.30, 0.35)),
+    z_range=None,
+    tex_period: float = 10.0,
+    device=None,
+) -> Scene:
+    """Room with ellipsoid objects resting on the floor (y = +hy, y down).
+    `half_range` bounds the per-axis half-extents; `z_range` overrides the
+    forward placement band."""
+    if num_tables > 0:
+        raise NotImplementedError("table slabs arrive with ROADMAP slice 6 (quadric objects)")
+    dev = resolve_device(device)
+    room = make_room(half_extent=half_extent, seed=seed, tex_period=tex_period, device=dev)
+    rng = np.random.default_rng(seed + 100)
+    hx, hy, hz = half_extent
+    if z_range is None:
+        z_range = (0.8, hz * 0.9)
+    els, labels, albedo = [], [], []
+    for i in range(num_objects):
+        half = rng.uniform(half_range[0], half_range[1])
+        yaw = rng.uniform(0, np.pi)
+        x = rng.uniform(-hx * 0.6, hx * 0.6)
+        z = rng.uniform(*z_range)
+        y = hy - half[1]  # resting on the floor
+        els.append([x, y, z, 0.0, yaw, 0.0, half[0], half[1], half[2]])
+        label = i % 3  # tied to an albedo band, a visual correlate
+        labels.append(label)
+        albedo.append(115.0 + 55.0 * label + rng.uniform(-18.0, 18.0))
+    return Scene(
+        room=room,
+        ellipsoids=torch.from_numpy(np.array(els, np.float32).reshape(-1, 9)).to(dev),
+        labels=torch.from_numpy(np.array(labels, np.int32)).to(dev),
+        albedo=torch.from_numpy(np.array(albedo, np.float32)).to(dev),
+    )
+
+
+def _euler_to_rotmat(rpy: torch.Tensor) -> torch.Tensor:
+    """XYZ Euler (roll, pitch, yaw) -> R = Rz(yaw) Ry(pitch) Rx(roll)
+    (the objects slice's `core/quadric.py` will own this)."""
+    r, p, y = rpy[..., 0], rpy[..., 1], rpy[..., 2]
+    cr, sr, cp, sp, cy, sy = torch.cos(r), torch.sin(r), torch.cos(p), torch.sin(p), torch.cos(y), torch.sin(y)
+    return torch.stack([
+        torch.stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr], dim=-1),
+        torch.stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr], dim=-1),
+        torch.stack([-sp, cp * sr, cp * cr], dim=-1),
+    ], dim=-2)
+
+
+def _ray_ellipsoid(e: torch.Tensor, origin: torch.Tensor, rays: torch.Tensor):
+    """Rays (..., 3) from `origin` against ellipsoid e (9,) -> hit distance
+    (...,) (inf on a miss) and unit world normals (..., 3)."""
+    R = _euler_to_rotmat(e[3:6])
+    inv_scale = 1.0 / e[6:9]
+    # world -> unit-sphere coordinates: x' = S^-1 R^T (x - c)
+    o_l = (R.T @ (origin - e[0:3])) * inv_scale
+    d_l = (rays @ R) * inv_scale
+    a = torch.sum(d_l * d_l, dim=-1)
+    b = 2.0 * (d_l @ o_l)
+    c = torch.sum(o_l * o_l) - 1.0
+    disc = b * b - 4 * a * c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    t0 = (-b - sq) / (2 * a)
+    t = torch.where((disc > 0.0) & (t0 > 0.05), t0, torch.inf)
+    p_l = o_l + d_l * t[..., None]
+    n_w = (p_l * inv_scale) @ R.T
+    n_w = n_w / torch.clamp(torch.linalg.vector_norm(n_w, dim=-1, keepdim=True), min=1e-9)
+    return t, n_w
+
+
+def render_scene(
+    scene: Scene, T_cw, intr: Intrinsics, height: int = 480, width: int = 640
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Render (gray, depth, instance id) with the objects composited over
+    the room; instance id is -1 on the background."""
+    dev = scene.room.textures.device
+    if not isinstance(T_cw, torch.Tensor):
+        T_cw = torch.from_numpy(np.asarray(T_cw, np.float32))
+    T_cw = T_cw.to(dev, torch.float32)
+    gray_bg, depth_bg = render_frame(scene.room, T_cw, intr, height, width)
+    if scene.ellipsoids.shape[0] == 0:
+        return gray_bg, depth_bg, torch.full(gray_bg.shape, -1, dtype=torch.int32, device=dev)
+    T_wc = lie.inv_se3(T_cw)
+    c_w = T_wc[:3, 3]
+    yy = torch.arange(height, dtype=torch.float32, device=dev)[:, None].expand(height, width)
+    xx = torch.arange(width, dtype=torch.float32, device=dev)[None, :].expand(height, width)
+    rays_c = torch.stack(
+        [(xx - intr.cx) / intr.fx, (yy - intr.cy) / intr.fy, torch.ones_like(xx)], dim=-1
+    )
+    rays_w = rays_c @ T_wc[:3, :3].T
+    light = torch.tensor([0.4, -0.8, 0.45], dtype=torch.float32, device=dev)
+    light = light / torch.linalg.vector_norm(light)
+    ts, gs = [], []
+    for e, alb, label in zip(scene.ellipsoids, scene.albedo, scene.labels):
+        t, n = _ray_ellipsoid(e, c_w, rays_w)
+        # Lambert shading and a class-dependent surface ripple (texture on
+        # the object, a visual correlate of its label).
+        lam = torch.clamp(n @ light, 0.15, 1.0)
+        p_w = c_w + rays_w * t[..., None]
+        f = 18.0 + 13.0 * label.to(torch.float32)
+        ripple = 0.5 + 0.5 * torch.sin(f * p_w[..., 0]) * torch.sin(0.83 * f * p_w[..., 1]) * torch.sin(
+            1.26 * f * p_w[..., 2])
+        ts.append(t)
+        gs.append(alb * lam * (0.75 + 0.45 * ripple))
+    t_best, o_best = torch.min(torch.stack(ts), dim=0)
+    g_obj = torch.gather(torch.stack(gs), 0, o_best[None])[0]
+    hit = torch.isfinite(t_best) & ((t_best < depth_bg) | (depth_bg <= 0.0))
+    return (torch.where(hit, g_obj, gray_bg), torch.where(hit, t_best, depth_bg),
+            torch.where(hit, o_best.to(torch.int32), -1))
 
 
 def orbit_trajectory(num_frames: int, step: float = 0.02, pitch: float = 0.0) -> np.ndarray:

@@ -2,8 +2,9 @@
 (counterpart of `qsp_slam_tpu/frontend/orb.py`).
 
 pyramid -> FAST + NMS on every level at two thresholds (kernel K1, one
-launch per frame) -> per-level keypoint selection -> intensity-
-centroid orientation -> steered BRIEF-256 on the blurred level, emitted as
+launch per frame, or per stereo pair with `extract_features_pair`) ->
+per-level keypoint selection -> intensity-centroid orientation ->
+steered BRIEF-256 on the blurred level, emitted as
 a fixed-capacity feature table.  The sampling pattern is the reference's
 seeded table (same generator, same seed).  Descriptors come both packed
 ((F, 8) int32 words, bit j of word w = bit 32w + j, the matcher's form for
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops.fast_nms import fast_score_nms_pyramid
+from ..ops.fast_nms import MAX_LEVELS, fast_score_nms_pyramid
 from .fast import Keypoints, select_keypoints
 from .pyramid import PyramidConfig, build_pyramid, gaussian_blur
 
@@ -161,6 +162,14 @@ def _per_level_budget(cfg: OrbConfig) -> list[int]:
     return budgets
 
 
+def _as_image(img, device) -> torch.Tensor:
+    if not isinstance(img, torch.Tensor):
+        img = torch.as_tensor(np.asarray(img), device=resolve_device(device))
+    elif device is not None:
+        img = img.to(device)
+    return img.to(torch.float32).contiguous()
+
+
 def extract_features(img, cfg: OrbConfig, device=None) -> Features:
     """Full ORB pipeline for one grayscale image -> Features table of static
     capacity `cfg.num_features` with a validity mask.
@@ -168,16 +177,33 @@ def extract_features(img, cfg: OrbConfig, device=None) -> Features:
     `img` is an (H, W) tensor (used on its own device) or an array, which
     goes to `device` (CUDA unless named).  uint8 input is cast here.
     """
-    if not isinstance(img, torch.Tensor):
-        img = torch.as_tensor(np.asarray(img), device=resolve_device(device))
-    elif device is not None:
-        img = img.to(device)
-    img = img.to(torch.float32).contiguous()
-    pyr = build_pyramid(img, cfg.pyramid)
+    pyr = build_pyramid(_as_image(img, device), cfg.pyramid)
     # Kernel K1, one launch: every level at both thresholds.
     scores = fast_score_nms_pyramid(pyr, (cfg.fast_threshold, cfg.fast_threshold_min))
+    return _features_from_scores(pyr, scores, cfg)
+
+
+def extract_features_pair(img_l, img_r, cfg: OrbConfig, device=None) -> tuple[Features, Features]:
+    """`extract_features` of a stereo pair, the same two tables, with one
+    K1 launch for both pyramids when their levels fit one launch
+    (2 x 8 levels is exactly `MAX_LEVELS`), else one launch per image."""
+    pyrs = [build_pyramid(_as_image(im, device), cfg.pyramid) for im in (img_l, img_r)]
+    ths = (cfg.fast_threshold, cfg.fast_threshold_min)
+    n = len(pyrs[0])
+    if 2 * n <= MAX_LEVELS:
+        scores = fast_score_nms_pyramid(pyrs[0] + pyrs[1], ths)
+        per_image = (scores[:n], scores[n:])
+    else:
+        per_image = tuple(fast_score_nms_pyramid(p, ths) for p in pyrs)
+    return tuple(_features_from_scores(p, sc, cfg) for p, sc in zip(pyrs, per_image))
+
+
+def _features_from_scores(pyr: list[torch.Tensor], scores, cfg: OrbConfig) -> Features:
+    """Keypoint selection, orientation and descriptors of every level,
+    given its NMS'd score maps at both thresholds."""
     budgets = _per_level_budget(cfg)
     scales = cfg.pyramid.scales
+    dev = pyr[0].device
 
     xs, resp, ang, oct_, bits, pm, valid = [], [], [], [], [], [], []
     for lv, (im, budget) in enumerate(zip(pyr, budgets)):
@@ -199,7 +225,7 @@ def extract_features(img, cfg: OrbConfig, device=None) -> Features:
         xs.append(kp.xy * scales[lv])  # level-0 coords
         resp.append(kp.score)
         ang.append(a)
-        oct_.append(torch.full((budget,), lv, dtype=torch.int32, device=img.device))
+        oct_.append(torch.full((budget,), lv, dtype=torch.int32, device=dev))
         bits.append(d_bits)
         pm.append(d_pm)
         valid.append(kp.valid)

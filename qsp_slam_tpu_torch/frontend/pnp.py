@@ -99,11 +99,15 @@ def pnp_sample(valid: torch.Tensor, gen: torch.Generator | None, num_hyp: int = 
     """Hypothesis point indices drawn from the valid rows, with replacement:
     (..., num_hyp // 2, 6) for the DLT pool and (..., num_hyp - num_hyp // 2,
     4) for the planar pool.  A row with no valid correspondence draws
-    uniformly; its hypotheses are rejected anyway."""
+    uniformly; its hypotheses are rejected anyway.  The draw runs on the
+    generator's device and lands on `valid`'s (a CPU generator gives the
+    card the draws of a CPU run)."""
     n6, n4 = num_hyp // 2, num_hyp - num_hyp // 2
     w = valid.reshape(-1, valid.shape[-1]).to(torch.float32)
     w = torch.where(w.sum(dim=-1, keepdim=True) > 0, w, torch.ones_like(w))
-    idx = torch.multinomial(w, n6 * 6 + n4 * 4, replacement=True, generator=gen)
+    if gen is not None:
+        w = w.to(gen.device)
+    idx = torch.multinomial(w, n6 * 6 + n4 * 4, replacement=True, generator=gen).to(valid.device)
     lead = valid.shape[:-1]
     return idx[:, : n6 * 6].reshape(lead + (n6, 6)), idx[:, n6 * 6:].reshape(lead + (n4, 4))
 

@@ -1,0 +1,123 @@
+"""KITTI odometry stereo command line (counterpart of
+`qsp_slam_tpu/run_kitti.py`, point-only): tracks a sequence's stereo
+pairs with loop closing on, and prints one JSON line:
+`SlamSystem.summary()` plus, given `--poses`, the ATE, RPE and keyframe
+ATE (the keyframe chain after loop correction).  With `--save-dir` it
+writes `trajectory.txt` (KITTI format) and `report.json` (the summary
+with `loop_events`, `loop_scan`, `capacity_events`, `resets`,
+`relocalizations` and `peak_rss_mb`).  It runs on CUDA unless given
+`--cpu`.
+
+    python -m qsp_slam_tpu_torch.run_kitti SEQ_DIR [--poses poses.txt]
+        [--save-dir out] [--max-frames F] [--global-ba] [--cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import resource
+import sys
+
+import numpy as np
+
+_LATER = {
+    "detections": "slices 6 and 8 (objects, learned detectors)",
+    "lidar_detections": "slices 6 and 8 (objects, learned detectors)",
+    "detector3d": "slices 6 and 8 (objects, learned detectors)",
+    "mesh": "slice 9 (distribution)",
+}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("sequence", help=".../sequences/NN directory")
+    ap.add_argument("--poses", default=None, help="ground-truth poses file for ATE")
+    ap.add_argument("--save-dir", default=None)
+    ap.add_argument("--max-frames", type=int, default=None)
+    ap.add_argument("--detections", default=None, help="per-frame detection caches (not in this port yet)")
+    ap.add_argument("--lidar-detections", action="store_true",
+                    help="detections from the velodyne scans (not in this port yet)")
+    ap.add_argument("--detector3d", default=None, metavar="PARAMS_NPZ",
+                    help="learned 3D detector (not in this port yet)")
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of CUDA")
+    ap.add_argument("--mesh", type=int, default=None, metavar="N", help="sharded global BA (not in this port yet)")
+    ap.add_argument("--global-ba", action="store_true",
+                    help="one full-map optimization pass after the sequence")
+    ap.add_argument("--kmax", type=int, default=128)
+    ap.add_argument("--nmax", type=int, default=16384)
+    ap.add_argument("--emax", type=int, default=131072)
+    ap.add_argument("--num-features", type=int, default=2000)
+    args = ap.parse_args(argv)
+    for name, where in _LATER.items():
+        if getattr(args, name) not in (None, False):
+            raise NotImplementedError(f"--{name.replace('_', '-')} arrives with ROADMAP {where}")
+
+    from .data.io import save_trajectory_kitti
+    from .data.kitti import KittiSequence
+    from .eval.ate import ate_rmse, rpe
+    from .frontend.orb import OrbConfig
+    from .frontend.pyramid import PyramidConfig
+    from .slam.system import SlamSystem
+    from .slam.tracking import TrackingConfig
+
+    seq = KittiSequence(args.sequence, args.poses)
+    intr = seq.intrinsics
+    g0, _ = seq.load_gray_pair(0)
+    H, W = g0.shape
+    cfg = TrackingConfig(
+        # The reference's KITTI feature budget (KITTI00-02.yaml).
+        orb=OrbConfig(num_features=args.num_features, pyramid=PyramidConfig(height=H, width=W)),
+        fx=float(intr["fx"]), fy=float(intr["fy"]), cx=float(intr["cx"]), cy=float(intr["cy"]),
+        width=W, height=H, baseline=seq.baseline, depth_max=60.0,
+        # Bound per-frame tracking cost on long drives.
+        local_map_budget=8192,
+    )
+    sysm = SlamSystem(cfg, kmax=args.kmax, nmax=args.nmax, emax=args.emax,
+                      device="cpu" if args.cpu else None)
+    n = len(seq) if args.max_frames is None else min(len(seq), args.max_frames)
+    # Stereo pairs decode ahead on the native worker pool.
+    for idx, (gl, gr) in zip(range(n), seq.prefetch_pairs(range(n))):
+        sysm.track_stereo(gl, gr)
+        if (idx + 1) % 50 == 0:
+            print(f"[{idx + 1}/{n}] kfs={sysm.stats['keyframes']}", file=sys.stderr)
+
+    if args.global_ba:
+        sysm.run_global_ba()
+    out = sysm.summary()
+    if args.global_ba:
+        out["global_ba"] = True
+    est = np.stack(sysm.trajectory)
+    if seq.poses is not None:
+        gt_Tcw = np.stack([np.linalg.inv(T) for T in seq.poses[:n]])
+        out["ate_rmse_m"] = ate_rmse(est, gt_Tcw)
+        out.update(rpe(est, gt_Tcw))
+        # Keyframe-trajectory ATE: reflects loop-closure and global-BA
+        # corrections, which the frozen per-frame history does not.
+        kf_frames = sysm.stats.get("kf_frames", [])
+        n_kf = int(sysm.map_state.num_kfs)
+        if len(kf_frames) >= 2 and len(kf_frames) == n_kf:
+            live = sysm.map_state.kf_valid[:n_kf].cpu().numpy()
+            kf_est = sysm.map_state.kf_Tcw[:n_kf].cpu().numpy()[live]
+            if len(kf_est) >= 2:
+                out["kf_ate_rmse_m"] = ate_rmse(kf_est, gt_Tcw[np.asarray(kf_frames)[live]])
+    if args.save_dir:
+        os.makedirs(args.save_dir, exist_ok=True)
+        save_trajectory_kitti(os.path.join(args.save_dir, "trajectory.txt"), est)
+        # `ate_rmse_m` is the frozen per-frame history, `kf_ate_rmse_m` the
+        # corrected keyframe chain: the pair is the before and after of the
+        # loop closures listed here.
+        report = dict(out)
+        for key, default in (("loop_events", []), ("loop_scan", []), ("capacity_events", []),
+                             ("resets", 0), ("relocalizations", 0)):
+            report[key] = sysm.stats.get(key, default)
+        report["peak_rss_mb"] = round(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0, 1)
+        with open(os.path.join(args.save_dir, "report.json"), "w") as f:
+            json.dump(report, f)
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,13 +1,14 @@
-"""Save and resume a point-only RGB-D session (counterpart of
+"""Save and resume a point-only RGB-D or stereo session (counterpart of
 `qsp_slam_tpu/slam/checkpoint.py`): the map, the snapshot store, the
-tracker's fields, the stats, the trajectory and the capacities, in one npz
-with the JAX package's keys (`map.*`, `loop.*`, `Tcw`, ...).  So a
-checkpoint the JAX package wrote for such a session resumes in the port,
-which carries the state across as `convert.py` does.
+tracker's fields, the sensor, the loop count and the consistency gate's
+history, the stats, the trajectory and the capacities, in one npz with
+the JAX package's keys (`map.*`, `loop.*`, `Tcw`, `sensor`,
+`loops_closed`, `loop_gate_json`, ...).  So a checkpoint the JAX package
+wrote for such a session resumes in the port, which carries the state
+across as `convert.py` does.
 
-A checkpoint with state of a later slice (live objects, a monocular
-bootstrap reference, a loop-gate history) raises `NotImplementedError`
-naming the slice.
+A checkpoint with state of a later slice (a monocular session, live
+objects) raises `NotImplementedError` naming the slice.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from ..convert import loop_state_from_numpy, map_state_from_numpy
+from .loop_closing import ConsistencyGate
 
 
 def _flatten(prefix: str, nt) -> dict:
@@ -73,27 +75,25 @@ def save_checkpoint(path: str, system) -> None:
     data["initialized"] = np.asarray(system.initialized)
     data["frames_since_kf"] = np.asarray(system.frames_since_kf)
     data["inliers_at_last_kf"] = np.asarray(system.inliers_at_last_kf)
-    data["sensor"] = np.asarray("rgbd")
-    data["loops_closed"] = np.asarray(0)
+    data["sensor"] = np.asarray(system._sensor)
+    data["loops_closed"] = np.asarray(system.loops_closed)
     data["stats_json"] = np.asarray(json.dumps(system.stats))
     data["trajectory"] = np.stack(system.trajectory) if system.trajectory else np.zeros((0, 4, 4))
     data["kf_fresh"] = np.asarray(system._kf_fresh)
+    gate = system._loop_gate
+    data["loop_gate_json"] = np.asarray(json.dumps(
+        {"required": gate.required, "neighborhood": gate.neighborhood, "history": gate.history}))
     np.savez_compressed(path, **data)
 
 
 def _refuse_later(data: dict) -> None:
     sensor = str(data["sensor"]) if "sensor" in data else "rgbd"
-    later = {
-        "stereo": "slice 3 (stereo)", "mono": "slice 5 (monocular)",
-    }
-    if sensor in later:
-        raise NotImplementedError(f"a {sensor} session resumes with ROADMAP {later[sensor]}")
+    if sensor == "mono":
+        raise NotImplementedError("a mono session resumes with ROADMAP slice 5 (monocular)")
     if "monoref.depth" in data:
         raise NotImplementedError("a monocular bootstrap reference resumes with ROADMAP slice 5 (monocular)")
     if ("obj.valid" in data and np.asarray(data["obj.valid"]).any()) or "ground_plane" in data:
         raise NotImplementedError("object state resumes with ROADMAP slice 6 (quadric objects)")
-    if "loop_gate_json" in data and json.loads(str(data["loop_gate_json"]))["history"]:
-        raise NotImplementedError("a loop-gate history resumes with ROADMAP slice 4 (loop closing)")
 
 
 def load_checkpoint(path: str, system) -> None:
@@ -120,3 +120,11 @@ def load_checkpoint(path: str, system) -> None:
     system.trajectory = list(data["trajectory"])
     system._kf_fresh = bool(data.get("kf_fresh", False))
     system._lost_streak = 0
+    system._sensor = str(data["sensor"]) if "sensor" in data else "rgbd"
+    system.loops_closed = int(data.get("loops_closed", 0))
+    gate = ConsistencyGate()
+    if "loop_gate_json" in data:
+        g = json.loads(str(data["loop_gate_json"]))
+        gate = ConsistencyGate(g["required"], g["neighborhood"])
+        gate.history = [list(map(int, h)) for h in g["history"]]
+    system._loop_gate = gate

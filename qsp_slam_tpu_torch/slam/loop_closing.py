@@ -1,18 +1,55 @@
-"""Keyframe snapshots (counterpart of `qsp_slam_tpu/slam/loop_closing.py`,
-the part every keyframe runs).  Each keyframe stores a fixed-size snapshot
-of its features and a place signature, slot k for keyframe k; relocalization
-and loop verification read them in later slices.
+"""Loop closing (counterpart of `qsp_slam_tpu/slam/loop_closing.py`,
+point-only): keyframe snapshots, the consistency gate, geometric Sim3
+verification and the pose-graph correction.
+
+- Every keyframe stores a fixed-size snapshot of its features and a place
+  signature, slot k for keyframe k (relocalization reads them too).
+- `ConsistencyGate`: a candidate goes to verification only after its
+  keyframe-id neighbourhood has been proposed in 3 consecutive rounds.
+- `verify_loop` / `detect_loop`: one kernel-K2 call at (features,
+  snapshot rows) per verification.  The word-gated first match and the
+  projection-gated growth match share that distance matrix; RANSAC Sim3
+  with the two-sided image gate, growth, re-solve, image-space polish.
+- `correct_loop`: the essential graph (covisibility-weighted odometry
+  chain, the strongest covisibility edges, the loop edge), LM over it, and
+  every map point moved with its anchor keyframe's correction.  Object
+  re-anchoring waits for the objects slice.
+
+The RANSAC draws come from a `torch.Generator`; `draw` lets a caller
+supply them (see `opt.sim3_solver`).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core import lie
+from ..core.camera import Intrinsics, project
+from ..frontend import matcher
+from ..frontend.fast import topk_stable
 from ..frontend.orb import DESC_BITS
-from .place_recognition import PlaceDatabase, add_signature, bow_signature, empty_database
+from ..opt.pose_graph import PoseGraphEdges, optimize_pose_graph, relative_measurement
+from ..opt.sim3_solver import (
+    Draw,
+    Sim3RansacResult,
+    ransac_sim3_reproj,
+    refine_sim3_reproj,
+    sim3_image_inliers,
+    sim3_sample,
+)
+from .map import MapState
+from .place_recognition import (
+    PlaceDatabase,
+    add_signature,
+    bow_signature,
+    empty_database,
+    query,
+    quantize_words,
+)
 
 
 class LoopState(NamedTuple):
@@ -101,3 +138,248 @@ def grow_loop_state(ls: LoopState, kmax: int) -> LoopState:
     signatures[:k0] = ls.db.signatures
     rep["db"] = PlaceDatabase(signatures=signatures, df=ls.db.df, count=ls.db.count)
     return LoopState(**rep)
+
+
+class LoopDetection(NamedTuple):
+    found: torch.Tensor  # () bool
+    match_kf: torch.Tensor  # () int32
+    T_cur_match: torch.Tensor  # (4, 4) current-camera <- match-camera transform
+    num_inliers: torch.Tensor  # () int
+    score: torch.Tensor  # () f32 appearance score
+
+
+class ConsistencyGate:
+    """A candidate proceeds to geometric verification only after its
+    neighbourhood (keyframe ids within `neighborhood`) appeared in
+    `required` consecutive detection rounds.  Host-side state."""
+
+    def __init__(self, required: int = 3, neighborhood: int = 8):
+        self.required = required
+        self.neighborhood = neighborhood
+        self.history: list[list[int]] = []
+
+    def update(self, cands, scores) -> int:
+        """Feed this round's candidates (-1 = none); returns the best-scored
+        consistent candidate, or -1."""
+        cands = [int(c) for c in np.asarray(cands)]
+        scores = [float(s) for s in np.asarray(scores)]
+        best_id, best_score = -1, -np.inf
+        have = len(self.history) >= self.required - 1
+        for c, s in zip(cands, scores):
+            if c < 0:
+                continue
+            if have and all(
+                any(abs(c - c2) <= self.neighborhood for c2 in h)
+                for h in self.history[-(self.required - 1):]
+            ):
+                if s > best_score:
+                    best_id, best_score = c, s
+        self.history.append([c for c in cands if c >= 0])
+        if len(self.history) > self.required:
+            self.history = self.history[-self.required:]
+        return best_id
+
+    def reset(self):
+        self.history = []
+
+
+def verify_loop(
+    ls: LoopState,
+    cand: int,  # candidate keyframe id (-1: none)
+    desc_pm: torch.Tensor,  # (F, 256) current keyframe features
+    feat_valid: torch.Tensor,
+    pts_cam: torch.Tensor,  # (F, 3)
+    pts_ok: torch.Tensor,
+    gen: torch.Generator | None,
+    intr: Intrinsics,
+    xy: torch.Tensor,  # (F, 2) current keypoint pixels
+    octave: torch.Tensor | None = None,  # (F,)
+    min_inliers: int = 20,
+    fix_scale: bool = True,
+    scale_factor: float = 1.2,
+    draw: Draw = sim3_sample,
+) -> LoopDetection:
+    """Geometric verification of one candidate: matching, image-space
+    RANSAC Sim3, correspondence growth and polish."""
+    if octave is None:
+        octave = torch.zeros(desc_pm.shape[0], dtype=torch.int32, device=desc_pm.device)
+    res = _match_and_solve_sim3(ls, max(int(cand), 0), desc_pm, feat_valid, pts_cam, pts_ok, xy,
+                                octave, gen, fix_scale, intr, scale_factor, draw=draw)
+    dev = desc_pm.device
+    return LoopDetection(
+        found=(cand >= 0) & res.ok & (res.num_inliers >= min_inliers),
+        match_kf=torch.tensor(int(cand), dtype=torch.int32, device=dev),
+        T_cur_match=res.T_ds,
+        num_inliers=res.num_inliers,
+        score=torch.zeros((), dtype=torch.float32, device=dev),
+    )
+
+
+def _match_and_solve_sim3(
+    ls, cand_c, desc_pm, feat_valid, pts_cam, pts_ok, xy, octave, gen,
+    fix_scale, intr, scale_factor: float = 1.2, grow_px: float = 7.5, draw: Draw = sim3_sample,
+) -> Sim3RansacResult:
+    """The verification core.
+    1. Word-gated mutual match (bag-of-words buckets as a mask).
+    2. RANSAC Sim3 on the matched pairs, inliers by octave-scaled
+       reprojection chi2 in both images.
+    3. Growth: the candidate's points projected into the current image
+       with the solution, re-matched inside an octave-scaled window, then
+       re-solved; the better of the two solutions is kept.
+    4. Polish against the two-sided image residuals, kept when it
+       explains at least as many matches.
+    Both matches read one K2 distance matrix; `draw` is called once per
+    RANSAC (twice)."""
+    cand_desc = ls.kf_desc[cand_c]
+    cand_ok = ls.kf_pts_ok[cand_c]
+    cand_pts = ls.kf_pts_cam[cand_c]
+    cand_xy = ls.kf_xy[cand_c]
+    sf = float(np.float32(scale_factor))
+    sig2_cur = sf ** (2.0 * octave.to(torch.float32))
+    sig2_cand = sf ** (2.0 * ls.kf_octave[cand_c].to(torch.float32))
+    a_ok = feat_valid & pts_ok
+
+    dist = matcher.hamming_matrix(matcher.pack_pm(desc_pm), matcher.pack_pm(cand_desc))  # (F, S)
+    wm = matcher.word_mask(quantize_words(desc_pm), quantize_words(cand_desc))
+    m = matcher.mutual_match(dist, a_ok, cand_ok, max_dist=matcher.TH_LOW, ratio=0.9, pair_mask=wm)
+    j = torch.clamp(m.idx, min=0).long()
+
+    def solve(match_idx, match_valid):
+        ji = torch.clamp(match_idx, min=0).long()
+        return ransac_sim3_reproj(
+            pts_src=cand_pts[ji], pts_dst=pts_cam, uv_src=cand_xy[ji], uv_dst=xy,
+            sigma2_src=sig2_cand[ji], sigma2_dst=sig2_cur, valid=match_valid, gen=gen,
+            intr=intr, with_scale=not fix_scale, draw=draw,
+        )
+
+    res = solve(m.idx, m.valid)
+
+    # Growth window: the candidate snapshot projected into the current image.
+    uv_proj, z_proj = project(lie.transform_points(res.T_ds, cand_pts), intr)
+    r = grow_px * sf ** octave.to(torch.float32)
+    d2 = (xy[:, None, 0] - uv_proj[None, :, 0]) ** 2 + (xy[:, None, 1] - uv_proj[None, :, 1]) ** 2
+    near = (d2 < (r ** 2)[:, None]) & (z_proj > 0)[None, :]
+    m2 = matcher.mutual_match(dist, a_ok, cand_ok, max_dist=matcher.TH_HIGH, ratio=0.95, pair_mask=near)
+    idx2 = torch.where(m2.valid, m2.idx, m.idx)
+    valid2 = (m2.valid | m.valid) & res.ok  # growth only off a real seed
+    res2 = solve(idx2, valid2)
+    better = res2.ok & (res2.num_inliers > res.num_inliers)
+    res = Sim3RansacResult(
+        T_ds=torch.where(better, res2.T_ds, res.T_ds),
+        inliers=torch.where(better, res2.inliers, res.inliers),
+        num_inliers=torch.where(better, res2.num_inliers, res.num_inliers),
+        ok=res.ok | (better & res2.ok),
+    )
+
+    jw = torch.clamp(torch.where(better, idx2, j.to(idx2.dtype)), min=0).long()
+    valid_w = torch.where(better, valid2, m.valid)
+    T_pol = refine_sim3_reproj(
+        res.T_ds, cand_pts[jw], pts_cam, cand_xy[jw], xy, sig2_cand[jw], sig2_cur,
+        res.inliers.to(torch.float32), intr, with_scale=not fix_scale,
+    )
+    inl_pol = sim3_image_inliers(T_pol, cand_pts[jw], pts_cam, cand_xy[jw], xy, sig2_cand[jw],
+                                 sig2_cur, valid_w, intr, with_scale=not fix_scale)
+    n_pol = torch.sum(inl_pol)
+    keep = res.ok & (n_pol >= res.num_inliers)
+    return Sim3RansacResult(
+        T_ds=torch.where(keep, T_pol, res.T_ds),
+        inliers=torch.where(keep, inl_pol, res.inliers),
+        num_inliers=torch.where(keep, n_pol, res.num_inliers),
+        ok=res.ok,
+    )
+
+
+def detect_loop(
+    ls: LoopState,
+    desc_pm: torch.Tensor,
+    feat_valid: torch.Tensor,
+    pts_cam: torch.Tensor,
+    pts_ok: torch.Tensor,
+    gen: torch.Generator | None,
+    intr: Intrinsics,
+    xy: torch.Tensor,
+    octave: torch.Tensor | None = None,
+    score_min: float = 0.18,
+    exclude_recent: int = 10,
+    min_inliers: int = 20,
+    fix_scale: bool = True,
+    scale_factor: float = 1.2,
+    draw: Draw = sim3_sample,
+) -> LoopDetection:
+    """Top-1 appearance query plus geometric verification."""
+    if octave is None:
+        octave = torch.zeros(desc_pm.shape[0], dtype=torch.int32, device=desc_pm.device)
+    cand, score = query(ls.db, bow_signature(desc_pm, feat_valid), exclude_recent)
+    res = _match_and_solve_sim3(ls, torch.clamp(cand, min=0).long(), desc_pm, feat_valid, pts_cam,
+                                pts_ok, xy, octave, gen, fix_scale, intr, scale_factor, draw=draw)
+    return LoopDetection(
+        found=(score > score_min) & res.ok & (res.num_inliers >= min_inliers),
+        match_kf=cand, T_cur_match=res.T_ds, num_inliers=res.num_inliers, score=score,
+    )
+
+
+def correct_loop(
+    m: MapState,
+    cur_kf: int,
+    det: LoopDetection,
+    fix_scale: bool = True,
+    iters: int = 15,
+) -> MapState:
+    """Pose-graph correction of the keyframe chain and re-anchoring of the
+    map points.
+
+    Edges: the odometry chain (i, i+1), weighted by the pair's shared
+    observations (full trust at 100; a handoff with no common structure is
+    a sheet jump and nearly free), the 4 Kmax strongest covisibility
+    pairs (>= 20 shared points, not adjacent), and the loop edge (weight 5
+    when found).  Keyframe 0 and unused slots are fixed.  Each point then
+    moves with the correction of its anchor, the first keyframe that
+    observes it."""
+    dev = m.device
+    Kmax, Nmax = m.kf_Tcw.shape[0], m.pt_xyz.shape[0]
+    K = m.num_kfs
+    poses = m.kf_Tcw
+    ids = torch.arange(Kmax, dtype=torch.int64, device=dev)
+    # Covisibility counts: the 0/1 point incidence of each keyframe times
+    # its transpose, in f32 (exact below 2^24).
+    ob_kf, ob_pt = m.ob_kf.long(), m.ob_pt.long()
+    flat = torch.where(m.ob_valid, ob_kf * Nmax + ob_pt, 0)
+    seen = torch.zeros(Kmax * Nmax, dtype=torch.float32, device=dev)
+    seen = seen.scatter_reduce(0, flat, m.ob_valid.to(torch.float32), "amax").reshape(Kmax, Nmax)
+    covis = (seen @ seen.T).to(torch.int32)  # (Kmax, Kmax) shared points
+
+    odo_i = ids
+    odo_j = torch.clamp(ids + 1, 0, Kmax - 1)
+    odo_w = ((odo_j < K) & (odo_i < odo_j)).to(torch.float32) * torch.clamp(
+        covis[odo_i, odo_j] / 100.0, 1e-4, 1.0)
+    pair_ok = (
+        (ids[None, :] > ids[:, None] + 1)
+        & (ids[None, :] < K)
+        & m.kf_valid[:, None]
+        & m.kf_valid[None, :]
+        & (covis >= 20)
+    )
+    top_c, top_idx = topk_stable(torch.where(pair_ok, covis, 0).reshape(-1), 4 * Kmax)
+    cov_i, cov_j = top_idx // Kmax, top_idx % Kmax
+    cov_w = torch.where(top_c > 0, torch.clamp(top_c / 100.0, 0.2, 1.0), 0.0)
+
+    sim3 = not fix_scale
+    cur = torch.full((1,), int(cur_kf), dtype=torch.int64, device=dev)
+    all_i = torch.cat([odo_i, cov_i, cur])
+    all_j = torch.cat([odo_j, cov_j, det.match_kf.reshape(1).long()])
+    meas_T = relative_measurement(poses[all_i[:-1]], poses[all_j[:-1]], sim3)
+    edges = PoseGraphEdges(
+        i=all_i, j=all_j,
+        T_ij=torch.cat([meas_T, det.T_cur_match[None]]),
+        weight=torch.cat([odo_w, cov_w, torch.where(det.found, 5.0, 0.0).reshape(1)]),
+    )
+    new_poses, _ = optimize_pose_graph(poses, (ids == 0) | (ids >= K), edges, sim3=sim3, iters=iters)
+
+    # Correction per keyframe: T_corr(k) = T_wk_new @ T_kw_old.
+    inv = lie.inv_se3 if fix_scale else lie.inv_sim3
+    T_corr = inv(new_poses) @ poses
+    anchor = torch.full((Nmax,), torch.iinfo(torch.int64).max, dtype=torch.int64, device=dev)
+    anchor = anchor.scatter_reduce(0, ob_pt, torch.where(m.ob_valid, ob_kf, Kmax - 1), "amin")
+    Ta = T_corr[torch.clamp(anchor, 0, Kmax - 1)]
+    pts_new = torch.einsum("nij,nj->ni", Ta[:, :3, :3], m.pt_xyz) + Ta[:, :3, 3]
+    return m._replace(kf_Tcw=new_poses, pt_xyz=torch.where(m.pt_valid[:, None], pts_new, m.pt_xyz))

@@ -12,8 +12,9 @@ keyframe snapshots, then PnP-RANSAC.
   most inliers wins.
 
 The reference seeds its RANSAC from `jax.random` keys, which torch cannot
-replay; here the draws come from a `torch.Generator` seeded from the same
-integers (`seed_of`), and `draw` lets a caller supply the indices instead.
+replay; here the draws come from a CPU `torch.Generator` seeded from the
+same integers (`seed_of`), so a run on the card draws what a CPU run
+draws, and `draw` lets a caller supply the indices instead.
 """
 
 from __future__ import annotations
@@ -45,13 +46,12 @@ def track_reference_keyframe(
     """Middle recovery tier: the motion model was wrong, the map is not.
     Callers accept the result on its inlier count."""
     r = max(ref_kf, 0)
-    dev = frame.feats.xy.device
     desc_kf, ok_kf = ls.kf_desc[r], ls.kf_pts_ok[r]
     wm = word_mask(quantize_words(frame.feats.desc_pm), quantize_words(desc_kf))
     dist = hamming_matrix(frame.feats.desc_bits, pack_pm(desc_kf))  # (F, S)
     m = mutual_match(dist, frame.feats.valid, ok_kf, max_dist=TH_LOW, ratio=0.85, pair_mask=wm)
     pts_w = lie.transform_points(lie.inv_se3(kf_Tcw[r]), ls.kf_pts_cam[r])
-    gen = torch.Generator(device=dev).manual_seed(seed_of(41, ref_kf))
+    gen = torch.Generator().manual_seed(seed_of(41, ref_kf))
     return pnp_ransac(
         pts_w[torch.clamp(m.idx, min=0).long()], frame.feats.xy, m.valid, cfg.intr, gen,
         center_hint=lie.inv_se3(Tcw_last)[:3, 3], max_center_dist=8.0, draw=draw,

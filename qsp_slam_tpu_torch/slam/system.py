@@ -1,9 +1,11 @@
-"""System facade: the single-controller RGB-D SLAM loop (counterpart of
-`qsp_slam_tpu/slam/system.py`, point-only RGB-D tracking).
+"""System facade: the single-controller SLAM loop (counterpart of
+`qsp_slam_tpu/slam/system.py`, point-only RGB-D and stereo tracking).
 
 Per frame: features + tracking, a host-side consistency gate and keyframe
 policy; on a keyframe: insertion, covisibility local BA, point fusion,
-periodic keyframe culling and the keyframe snapshot.  A lost frame goes
+periodic keyframe culling, the keyframe snapshot and, from keyframe 12
+on, loop closing (top-8 place query, consistency gate, Sim3
+verification, pose-graph correction and global BA).  A lost frame goes
 through the recovery tiers (reference-keyframe tracking, top-k
 relocalization, then the early-map reset or a coast on the prediction).
 Localization-only mode tracks against a frozen map.  Capabilities of
@@ -13,6 +15,7 @@ ROADMAP.md queue A).
 
 from __future__ import annotations
 
+import sys
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -30,8 +33,17 @@ from .local_mapping import (
     local_ba_step,
     window_edge_budget,
 )
-from .loop_closing import LoopState, empty_loop_state, grow_loop_state, snapshot_keyframe
+from .loop_closing import (
+    ConsistencyGate,
+    LoopState,
+    correct_loop,
+    empty_loop_state,
+    grow_loop_state,
+    snapshot_keyframe,
+    verify_loop,
+)
 from .map import MapState
+from .place_recognition import bow_signature, query_topk_with_ref
 from .relocalization import relocalize, track_reference_keyframe
 from .tracking import (
     FrameData,
@@ -40,12 +52,13 @@ from .tracking import (
     keyframe_insertion,
     need_keyframe,
     process_and_track,
+    process_and_track_stereo,
     process_frame,
+    process_frame_stereo,
 )
 
 _LATER = {
     "enable_objects": "slice 6 (quadric objects)",
-    "enable_loop_closing": "slice 4 (loop closing)",
     "detector": "slice 8 (learned detectors)",
     "shape_prior": "slice 7 (DeepSDF shapes)",
     "mesh": "slice 9 (distribution)",
@@ -72,7 +85,7 @@ class SlamSystem:
     emax: int = 65536
     ba_window: int = 8
     enable_objects: bool = False
-    enable_loop_closing: bool = False
+    enable_loop_closing: bool = True
     # Relocalization against the keyframe snapshots (always maintained).
     enable_relocalization: bool = True
     # Track and relocalize against the frozen map: no keyframes, no BA, no
@@ -86,6 +99,7 @@ class SlamSystem:
     loop_state: LoopState = field(init=False)
     Tcw: np.ndarray = field(init=False)
     velocity: np.ndarray = field(init=False)
+    loops_closed: int = 0
     initialized: bool = False
     frames_since_kf: int = 0
     inliers_at_last_kf: int = 0
@@ -102,6 +116,8 @@ class SlamSystem:
         self.velocity = np.eye(4, dtype=np.float32)
         self._kf_fresh = False
         self._lost_streak = 0
+        self._sensor = "rgbd"
+        self._loop_gate = ConsistencyGate()
 
     def _refuse_later(self):
         for name, where in _LATER.items():
@@ -133,6 +149,7 @@ class SlamSystem:
         self.inliers_at_last_kf = 0
         self._lost_streak = 0
         self._kf_fresh = False
+        self._loop_gate.reset()
         self.stats["kf_frames"] = []
         self.stats["resets"] = self.stats.get("resets", 0) + 1
 
@@ -142,6 +159,7 @@ class SlamSystem:
         uint16 PNG units or f32 meters); returns the estimated T_cw."""
         if detections is not None:
             raise NotImplementedError("detections arrive with ROADMAP " + _LATER["enable_objects"])
+        self._sensor = "rgbd"
         self._ensure_capacity()
         gray = _to_device(gray, self.device)
         depth = _to_device(depth, self.device)
@@ -155,6 +173,28 @@ class SlamSystem:
         Tcw_pred = self.velocity @ self.Tcw
         frame, res = process_and_track(
             gray, depth, self.map_state, torch.from_numpy(Tcw_pred).to(self.device), self.cfg
+        )
+        return self._post_track(frame, res, Tcw_pred, t0)
+
+    def track_stereo(self, gray_left, gray_right, detections=None) -> np.ndarray:
+        """Process one rectified stereo pair (gray (H, W) uint8/f32 each):
+        features of both images, scanline matching, depth per keypoint,
+        then the same tracking, recovery and keyframe policy as RGB-D;
+        returns the estimated T_cw of the left camera."""
+        if detections is not None:
+            raise NotImplementedError("detections arrive with ROADMAP " + _LATER["enable_objects"])
+        self._sensor = "stereo"
+        self._ensure_capacity()
+        gl = _to_device(gray_left, self.device)
+        gr = _to_device(gray_right, self.device)
+        if not self.initialized:
+            self._initialize(process_frame_stereo(gl, gr, self.cfg))
+            self.trajectory.append(self.Tcw.copy())
+            return self.Tcw
+        t0 = time.perf_counter()
+        Tcw_pred = self.velocity @ self.Tcw
+        frame, res = process_and_track_stereo(
+            gl, gr, self.map_state, torch.from_numpy(Tcw_pred).to(self.device), self.cfg
         )
         return self._post_track(frame, res, Tcw_pred, t0)
 
@@ -229,7 +269,7 @@ class SlamSystem:
             return True
         if not self.enable_relocalization:
             return False
-        gen = torch.Generator(device=dev).manual_seed(900 + self.stats["frames"])
+        gen = torch.Generator().manual_seed(900 + self.stats["frames"])
         r = relocalize(self.loop_state, self.map_state.kf_Tcw, frame, cfg, gen)
         if not bool(r.ok):
             return False
@@ -293,7 +333,7 @@ class SlamSystem:
         self.frames_since_kf = 0
         self.stats["keyframes"] += 1
         self.stats.setdefault("kf_frames", []).append(len(self.trajectory))
-        self._snapshot(frame)
+        self._loop_closing(frame, 0)
 
     def _insert_keyframe(self, frame: FrameData, res: TrackResult):
         self.map_state = keyframe_insertion(
@@ -317,26 +357,75 @@ class SlamSystem:
         self._kf_fresh = True
         self.stats["keyframes"] += 1
         self.stats.setdefault("kf_frames", []).append(len(self.trajectory))
-        self._snapshot(frame)
+        self._loop_closing(frame, kf_id)
 
-    def _snapshot(self, frame: FrameData):
-        """Every keyframe stores its snapshot and place signature."""
-        pts_cam = backproject(frame.feats.xy, frame.depth, self.cfg.intr)
+    def _loop_closing(self, frame: FrameData, kf_id: int):
+        """Snapshot the keyframe (always: relocalization reads the store),
+        then, from keyframe 12 on, loop closing in three stages: the top-8
+        place query above the adaptive floor (the worst score among the
+        recent covisible keyframes, at least 0.02); the consistency gate;
+        and, for a consistent candidate, Sim3 verification, which must
+        find >= 40 inliers.  A verified loop is corrected by the pose
+        graph and a global BA."""
+        cfg = self.cfg
+        pts_cam = backproject(frame.feats.xy, frame.depth, cfg.intr)
+        pts_ok = frame.depth > 0.0
         self.loop_state = snapshot_keyframe(
             self.loop_state, frame.feats.desc_pm, frame.feats.valid,
-            pts_cam, frame.depth > 0.0, frame.feats.xy, frame.feats.octave,
+            pts_cam, pts_ok, frame.feats.xy, frame.feats.octave,
         )
+        if not self.enable_loop_closing or kf_id < 12:
+            return
+        cands, scores, ref_min = query_topk_with_ref(
+            self.loop_state.db, bow_signature(frame.feats.desc_pm, frame.feats.valid), k=8
+        )
+        got = torch.cat([cands.to(torch.float64), scores.to(torch.float64), ref_min.reshape(1).to(torch.float64)])
+        got = got.cpu().numpy()
+        k = cands.shape[0]
+        cands_np, scores_np, ref_min = got[:k].astype(np.int64), got[k:2 * k].astype(np.float32), float(got[-1])
+        score_min = max(ref_min, 0.02)
+        chosen = self._loop_gate.update(np.where(scores_np > score_min, cands_np, -1), scores_np)
+        scan_row = [int(kf_id), tuple(int(c) for c in cands_np), float(scores_np[0]), ref_min, int(chosen), -1]
+        self.stats.setdefault("loop_scan", []).append(scan_row)
+        if chosen < 0:
+            return
+        # Stereo and RGB-D fix the scale (the monocular sensor waits for
+        # its slice).
+        gen = torch.Generator().manual_seed(77 + kf_id)
+        det = verify_loop(
+            self.loop_state, chosen, frame.feats.desc_pm, frame.feats.valid, pts_cam, pts_ok, gen,
+            intr=cfg.intr, xy=frame.feats.xy, octave=frame.feats.octave,
+            scale_factor=cfg.orb.pyramid.scale_factor, min_inliers=40,
+        )
+        found, n_inl = (int(v) for v in torch.stack([det.found.to(torch.int64), det.num_inliers.to(torch.int64)]).cpu())
+        scan_row[5] = n_inl
+        if not found:
+            return
+        ev = (int(kf_id), int(chosen), n_inl)
+        self.stats.setdefault("loop_events", []).append(ev)
+        print(f"[loop] kf={ev[0]} match={ev[1]} inliers={ev[2]}", file=sys.stderr)
+        self._loop_gate.reset()
+        self.map_state = correct_loop(self.map_state, kf_id, det)
+        self._dispatch_global_ba()
+        self.Tcw = self.map_state.kf_Tcw[kf_id].cpu().numpy()
+        self.velocity = np.eye(4, dtype=np.float32)
+        self.loops_closed += 1
+
+    def _dispatch_global_ba(self, iters: int = 10) -> None:
+        """Whole-map point-only BA on this device (the joint and sharded
+        variants raise through `_LATER`)."""
+        self._refuse_later()
+        self.map_state = global_ba_step(self.map_state, self.cfg, iters=iters)
+        self._sync()
 
     # ------------------------------------------------------------------
     def run_global_ba(self, iters: int = 10) -> None:
         """Full-map point-only optimization outside loop closure (all
         keyframes, keyframe 0 fixed, and all points), e.g. before saving a
         map.  The joint and sharded variants belong to later slices."""
-        self._refuse_later()
         if int(self.map_state.num_kfs) < 2:
             return
-        self.map_state = global_ba_step(self.map_state, self.cfg, iters=iters)
-        self._sync()
+        self._dispatch_global_ba(iters)
         self.Tcw = self.map_state.kf_Tcw[int(self.map_state.num_kfs) - 1].cpu().numpy()
         self.velocity = np.eye(4, dtype=np.float32)
 
@@ -351,7 +440,7 @@ class SlamSystem:
             "num_points": int(self.map_state.num_pts),
             "num_obs": int(self.map_state.num_obs),
             "num_objects": 0,
-            "loops_closed": 0,
+            "loops_closed": self.loops_closed,
             "track_ms_median": float(np.median(tm)) if tm else None,
             "ba_ms_median": float(np.median(bm)) if bm else None,
         }

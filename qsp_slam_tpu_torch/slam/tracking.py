@@ -1,6 +1,6 @@
 """Per-frame tracking: feature processing, projection matching, pose
 solve, keyframe insertion and policy (counterpart of
-`qsp_slam_tpu/slam/tracking.py`, the RGB-D half).
+`qsp_slam_tpu/slam/tracking.py`, the RGB-D and stereo frames).
 
 The (map points x features) Hamming matrix comes from kernel K2 once per
 frame; the 1x and 2x radius searches share it.
@@ -16,7 +16,8 @@ import torch
 from ..core import lie
 from ..core.camera import Intrinsics, backproject, in_image, project, undistort_points
 from ..frontend import matcher
-from ..frontend.orb import Features, OrbConfig, extract_features
+from ..frontend.orb import Features, OrbConfig, extract_features, extract_features_pair
+from ..frontend.stereo import depth_from_u_right, match_stereo
 from ..opt.pose_opt import PoseOptResult, optimize_pose
 from ..opt.reproj import ReprojEdges
 from . import map as mapmod
@@ -215,6 +216,26 @@ def _track_against(m: MapState, Tcw_pred: torch.Tensor, frame: FrameData, cfg: T
 def process_and_track(gray, depth_img, m: MapState, Tcw_pred: torch.Tensor, cfg: TrackingConfig):
     """Per-frame step: feature processing, then tracking."""
     frame = process_frame(gray, depth_img, cfg)
+    return frame, track_frame(m, Tcw_pred, frame, cfg)
+
+
+def process_frame_stereo(gray_left: torch.Tensor, gray_right: torch.Tensor, cfg: TrackingConfig) -> FrameData:
+    """The stereo frame constructor: both images' features (one K1 launch
+    for the pair), scanline matching with subpixel refinement, and depth
+    per keypoint."""
+    gl = gray_left.to(torch.float32)
+    gr = gray_right.to(torch.float32)
+    fl, fr = extract_features_pair(gl, gr, cfg.orb)
+    u_r = match_stereo(fl, fr, cfg.bf, min_depth=cfg.depth_min, max_depth=cfg.depth_max,
+                       gray_left=gl, gray_right=gr)
+    d = depth_from_u_right(fl.xy[:, 0], u_r, cfg.bf)
+    ok = (d > cfg.depth_min) & (d < cfg.depth_max) & fl.valid
+    return FrameData(feats=fl, depth=torch.where(ok, d, 0.0), u_right=torch.where(ok, u_r, -1.0))
+
+
+def process_and_track_stereo(gray_left, gray_right, m: MapState, Tcw_pred: torch.Tensor, cfg: TrackingConfig):
+    """Stereo per-frame step: the stereo frame, then tracking."""
+    frame = process_frame_stereo(gray_left, gray_right, cfg)
     return frame, track_frame(m, Tcw_pred, frame, cfg)
 
 

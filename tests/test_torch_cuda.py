@@ -185,3 +185,29 @@ def test_relocalize_matches_cpu(gen):
     assert (card.inliers.cpu() == cpu.inliers).float().mean() > 0.98
     c = [-(r.Tcw[:3, :3].T @ r.Tcw[:3, 3]).cpu().double() for r in (cpu, card)]
     assert float(torch.linalg.vector_norm(c[0] - c[1])) < 1e-3
+
+
+def test_stereo_pair_extractor_one_launch(gen):
+    """A stereo pair's two 8-level pyramids go through K1 in one launch, and
+    the stereo frame on the card equals the CPU's (K1 and K2 are exact, the
+    SADs of integer images too), but for depths within 1e-5 relative."""
+    from qsp_slam_tpu_torch.frontend.orb import extract_features, extract_features_pair
+    from qsp_slam_tpu_torch.slam.tracking import process_frame_stereo
+
+    cfg = TrackingConfig(orb=OrbConfig(num_features=1000), baseline=0.12)
+    shift = np.eye(4, dtype=np.float32)
+    shift[0, 3] = -0.12
+    T = orbit_trajectory(4)[2]
+    room = make_room(device="cuda")
+    gl, gr = (torch.round(render_frame(room, P, cfg.intr)[0]).clamp(0, 255) for P in (T, shift @ T))
+    before = fast_score_nms_pyramid.launches
+    pair = extract_features_pair(gl, gr, cfg.orb)
+    torch.cuda.synchronize()
+    assert fast_score_nms_pyramid.launches == before + 1
+    for one, img in zip(pair, (gl, gr)):
+        assert all(torch.equal(a, b) for a, b in zip(one, extract_features(img, cfg.orb)))
+    card = process_frame_stereo(gl, gr, cfg)
+    cpu = process_frame_stereo(gl.cpu(), gr.cpu(), cfg)
+    assert torch.equal(card.u_right.cpu(), cpu.u_right)
+    torch.testing.assert_close(card.depth.cpu(), cpu.depth, rtol=1e-5, atol=0)
+    assert int((cpu.depth > 0).sum()) > 200

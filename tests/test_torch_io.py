@@ -326,8 +326,7 @@ class TestCheckpoint:
         port = SlamSystem(TrackingConfig(), device="cpu", kmax=2, nmax=64, emax=128)
         for extra, slice_ in ((dict(sensor=np.asarray("mono")), "slice 5"),
                               (dict(**{"monoref.depth": np.zeros(3)}), "slice 5"),
-                              (dict(**{"obj.valid": np.array([False, True])}), "slice 6"),
-                              (dict(loop_gate_json=np.asarray('{"history": [[1, 2]]}')), "slice 4")):
+                              (dict(**{"obj.valid": np.array([False, True])}), "slice 6")):
             p = str(tmp_path / "c.npz")
             np.savez(p, **extra)
             with pytest.raises(NotImplementedError, match=slice_):

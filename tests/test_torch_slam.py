@@ -326,9 +326,24 @@ class TestLocalMapping:
 
 
 class TestSystemScope:
-    @pytest.mark.parametrize("kw", [dict(enable_objects=True), dict(enable_loop_closing=True),
-                                    dict(detector=("p", "c")), dict(shape_prior=("p", "c")),
-                                    dict(mesh=object())])
+    @pytest.mark.parametrize("kw", [dict(enable_objects=True), dict(detector=("p", "c")),
+                                    dict(shape_prior=("p", "c")), dict(mesh=object())])
     def test_later_slices_raise(self, kw):
         with pytest.raises(NotImplementedError, match="slice"):
             SlamSystem(ttr.TrackingConfig(), kmax=4, nmax=64, emax=256, device="cpu", **kw)
+
+    def test_loop_closing_flag_builds_a_looping_system(self, world):
+        """`enable_loop_closing=True` (the default, as in the reference)
+        builds a system that runs loop closing: from keyframe 12 on every
+        keyframe queries the place database and logs a scan row; with the
+        flag off it only snapshots."""
+        f = port_frame(world["jf3"])
+        rows = {}
+        for on in (True, False):
+            sysm = SlamSystem(world["cfg"], kmax=16, nmax=64, emax=256, device="cpu", enable_loop_closing=on)
+            assert sysm.enable_loop_closing is on and sysm.summary()["loops_closed"] == 0
+            for kf in range(14):
+                sysm._loop_closing(f, kf)
+            assert int(sysm.loop_state.db.count) == 14
+            rows[on] = [r[0] for r in sysm.stats.get("loop_scan", [])]
+        assert rows == {True: [12, 13], False: []}
