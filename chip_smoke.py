@@ -62,12 +62,31 @@ Phases (any failure exits non-zero and prints no result line):
   (2000, 2000) left-right, (8192, 2000) tracking, (2000, 384) and
   (1000, 384) loop verification; each timed beside its plain version, its
   bound and the library yardsticks.
-Paths 4, 7, 8, 9 and 10 each zero the launch counters just before and
+ 11. the monocular command line with objects: the port's `make_tum` writes
+     60 frames of the scene and orbit of `tests/test_mono_objects.py`
+     (`--objects 3 --detections --step 0.025 --pitch 0.4 --seed 2`) and
+     `run_mono.main` runs them on the card at its defaults (1000 features,
+     8 levels, 640x480, nmax 8192) with `--detections`: it must initialize,
+     make >= 3 keyframes, keep the Sim(3)-aligned ATE below 0.1 (mono gauge
+     units, `tests/test_mono_e2e.py`'s bound) and hold >= 2 objects with
+     the scene's labels; K1 once per frame; ms per frame (host clock around
+     each `track_mono`, synchronised), bootstrap attempts, local-BA and
+     object ms per keyframe, K2 launches per shape;
+ 12. 12 of those frames at 500 features with their detections on the card
+     and on the CPU (the RANSAC draws come from CPU generators, so both
+     draw the same): the same bootstrap frame and keyframes, camera centres
+     within 0.005 gauge units (the unit is the median depth of the
+     bootstrap, about 2 m here, so this is phase 5's 1 cm), the same
+     objects.
+  K2 at the monocular shapes: exactly equal to plain with planted rows at
+  (1000, 1000) bootstrap, (384, 1000) keyframe triangulation and
+  (8192, 1000) tracking, each timed.
+Paths 4, 7, 8, 9, 10 and 11 each zero the launch counters just before and
 read them just after.  With `--profile DIR`: torch.profiler tables in DIR
-of main-path frames 12-19 and of KITTI-drive frames 12-19 (phase 9's
-configuration), the device's busy share of each window, each kernel's
+of main-path frames 12-19, of KITTI-drive frames 12-19 (phase 9's
+configuration) and of monocular frames 12-19 (phase 11's), the device's busy share of each window, each kernel's
 device time per launch there, and each kernel's device time per call alone
-at the phase-6, recovery and stereo shapes.  Then a `{"kernels": [...]}` line, the
+at the phase-6, recovery, stereo and monocular shapes.  Then a `{"kernels": [...]}` line, the
 card line again, and as the last line `{"ok": true, "device": {...}}`.
 """
 
@@ -86,11 +105,11 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from qsp_slam_tpu_torch import run_kitti, run_tum  # noqa: E402
+from qsp_slam_tpu_torch import run_kitti, run_mono, run_tum  # noqa: E402
 from qsp_slam_tpu_torch.core import lie  # noqa: E402
 from qsp_slam_tpu_torch.data import make_kitti, make_tum, native_loader  # noqa: E402
 from qsp_slam_tpu_torch.data.kitti import KittiSequence  # noqa: E402
-from qsp_slam_tpu_torch.data.io import load_trajectory_tum  # noqa: E402
+from qsp_slam_tpu_torch.data.io import load_detection_cache, load_trajectory_tum  # noqa: E402
 from qsp_slam_tpu_torch.data.render import make_room, orbit_trajectory, render_frame  # noqa: E402
 from qsp_slam_tpu_torch.data.tum import TumSequence  # noqa: E402
 from qsp_slam_tpu_torch.eval.ate import ate_rmse, positions_from_Tcw  # noqa: E402
@@ -118,6 +137,9 @@ FRAMES = 60  # main-path frames; the first 10 are warm-up
 SNAP, RELOC_K = 384, 4  # keyframe snapshot rows, relocalization candidates
 KITTI_FRAMES, KITTI_H, KITTI_W, KITTI_F = 60, 376, 1241, 2000  # phase 9 at run_kitti's defaults
 STEREO_K2 = ((KITTI_F, KITTI_F), (8192, KITTI_F), (KITTI_F, SNAP), (1000, SNAP))
+MONO_FRAMES, MONO_F, MONO_SMALL = 60, 1000, 12  # phase 11 at run_mono's defaults; phase 12
+MONO_K2 = ((MONO_F, MONO_F), (SNAP, MONO_F), (8192, MONO_F))
+MONO_GAP = 0.005  # phase 12 centre gate, mono gauge units
 KERNEL_NAMES = ("fast_score_nms_pyramid_kernel", "hamming_mma_kernel")  # as the profiler names them
 
 
@@ -511,6 +533,116 @@ def loop_path(tmp: str) -> dict:
             "kf_ate_m": kf_ate, "frozen_ate_m": frozen_ate, "verify_ms": ev.verify, "correct_ms": ev.correct}
 
 
+class MonoFrames:
+    """Host-clock ms of every `SlamSystem.track_mono` call (synchronised),
+    whether the system was initialized before it, and the system itself:
+    installed over the class, so `run_mono`'s own system is timed."""
+
+    def __init__(self):
+        self.ms, self.was_init, self.system = [], [], None
+        self._saved = SlamSystem.track_mono
+
+    def __enter__(self):
+        saved = self._saved
+
+        def timed(sysm, *a, **k):
+            self.system = sysm
+            self.was_init.append(sysm.initialized)
+            t0 = time.perf_counter()
+            out = saved(sysm, *a, **k)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        SlamSystem.track_mono = timed
+        return self
+
+    def __exit__(self, *exc):
+        SlamSystem.track_mono = self._saved
+
+
+def mono_path(tmp: str, keep: int) -> dict:
+    """Phases 11-12: the monocular command line with objects at full width,
+    then the card against the CPU on its first frames.  The first `keep`
+    frames and their detections are returned (for the profile)."""
+    seq_dir = os.path.join(tmp, "mono")
+    t0 = time.perf_counter()
+    make_tum.main([seq_dir, "--frames", str(MONO_FRAMES), "--objects", "3", "--detections", "--step", "0.025",
+                   "--pitch", "0.4", "--seed", "2"])
+    make_s = time.perf_counter() - t0
+    det_dir = os.path.join(seq_dir, "detections")
+    torch.cuda.synchronize()
+    zero_counts()
+    with MonoFrames() as mf:
+        t0 = time.perf_counter()
+        out = run_mono.main([seq_dir, "--detections", det_dir])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    sysm = mf.system
+    kf_frames = sysm.stats.get("kf_frames", [])
+    valid = sysm.objects.valid.cpu().numpy()
+    labels = sorted(int(x) for x in sysm.objects.label.cpu().numpy()[valid])
+    tracked = [ms for ms, init in zip(mf.ms, mf.was_init) if init]
+    attempts = mf.was_init.index(True) - 1 if True in mf.was_init else len(mf.ms)
+    res = {"ms_per_frame_end_to_end": wall_ms / MONO_FRAMES, "ms_per_frame_median_tracked": float(np.median(tracked)),
+           "bootstrap_attempts": attempts, "kf_frames": kf_frames, "ba_ms": sysm.stats["ba_ms"],
+           "obj_ms": sysm.stats["obj_ms"], "labels": labels, "launches": counts, "out": out}
+    log(f"phase 11 mono command line: {MONO_FRAMES} frames at 640x480, {MONO_F} features, objects from "
+        f"detections (make_tum {make_s:.1f} s): {wall_ms / MONO_FRAMES:.3f} ms/frame end to end, median "
+        f"{res['ms_per_frame_median_tracked']:.3f} ms per tracked frame (host clock around track_mono), "
+        f"bootstrap after {attempts} attempts, keyframes at frames {kf_frames}, ATE (Sim3) "
+        f"{out.get('ate_rmse_m_sim3')}, {out['num_points']} points, objects {out['num_objects']} labels {labels}, "
+        f"local BA ms per keyframe {[round(x, 1) for x in sysm.stats['ba_ms']]}, object ms per keyframe "
+        f"{[round(x, 1) for x in sysm.stats['obj_ms']]}, resets {sysm.stats.get('resets', 0)}, "
+        f"relocalizations {sysm.stats.get('relocalizations', 0)}; launches {counts}")
+    scene_labels = {0, 1, 2}  # make_scene labels object i as i % 3
+    if not (sysm.initialized and out["keyframes"] >= 3 and out.get("ate_rmse_m_sim3", np.inf) < 0.1
+            and out["num_objects"] >= 2 and set(labels) <= scene_labels):
+        raise AssertionError(f"mono path failed: {out}, labels {labels}")
+    if counts["fast_nms"] != MONO_FRAMES or any(counts["hamming_shapes"].get(f"{a}x{b}", 0) < 1 for a, b in MONO_K2):
+        raise AssertionError(f"mono path launches: {counts}")
+
+    # 12. the card against the CPU on the first frames, with detections.
+    seq = TumSequence(seq_dir)
+    grays = [seq.load(i)[0] for i in range(max(MONO_SMALL, keep))]
+    dets = [load_detection_cache(os.path.join(det_dir, f"{i}.npz")) for i in range(max(MONO_SMALL, keep))]
+    res["kept"] = list(zip(grays, dets))[:keep]
+    small = TrackingConfig(orb=OrbConfig(num_features=500))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        runs[dev] = SlamSystem(small, enable_objects=True, device=dev)
+        for g, d in zip(grays[:MONO_SMALL], dets[:MONO_SMALL]):
+            runs[dev].track_mono(g, d)
+    p = {dev: positions_from_Tcw(np.stack(r.trajectory).astype(np.float64)) for dev, r in runs.items()}
+    gap = float(np.linalg.norm(p["cuda"] - p["cpu"], axis=1).max())
+    objs = {dev: (r.objects.valid.cpu().numpy(), r.objects.label.cpu().numpy()) for dev, r in runs.items()}
+    same_objs = all((objs["cuda"][i] == objs["cpu"][i]).all() for i in range(2))
+    ell_gap = float(np.abs(runs["cuda"].objects.ellipsoid.cpu().numpy() - runs["cpu"].objects.ellipsoid.numpy())
+                    [objs["cpu"][0]].max(initial=0.0))
+    log(f"phase 12 mono card vs CPU, {MONO_SMALL} frames at 500 features: max centre gap {gap:.2e} (gauge units), "
+        f"keyframes {runs['cuda'].stats['kf_frames']} vs {runs['cpu'].stats['kf_frames']}, objects "
+        f"{int(objs['cuda'][0].sum())} vs {int(objs['cpu'][0].sum())} (same slots and labels: {same_objs}), "
+        f"max ellipsoid gap {ell_gap:.2e}")
+    if (gap > MONO_GAP or runs["cuda"].stats["kf_frames"] != runs["cpu"].stats["kf_frames"]
+            or not runs["cuda"].initialized or not same_objs):
+        raise AssertionError("mono card and CPU runs disagree")
+    res.update(cpu_gap=gap, ell_gap=ell_gap)
+    return res
+
+
+def mono_kernels(gen) -> dict:
+    """K2 at the monocular shapes against plain, then timed."""
+    k2, k2_in = {}, {}
+    for A, B in MONO_K2:
+        a, b, rows, even = planted_words(A, B, gen)
+        check_k2(a, b, f"mono shape ({A}, {B})", rows, even)
+        k2[f"at_{A}x{B}"] = k2_times(a, b, gen, 100)
+        k2_in[(A, B)] = (a, b)
+        log(f"  K2 at ({A}, {B}), exactly equal to plain (planted rows at 0 and 256): {k2[f'at_{A}x{B}']}")
+    return {"k2": k2, "k2_inputs": k2_in}
+
+
 def stereo_kernels(pair, gen) -> dict:
     """K1 over one 16-level launch on a KITTI-size stereo pair and K2 at
     the stereo shapes, each against its plain version, then timed."""
@@ -754,7 +886,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         kit = kitti_path(tmp, keep=20 if prof_dir else 0)
         loop = loop_path(tmp)
+        mono = mono_path(tmp, keep=20 if prof_dir else 0)
     st = stereo_kernels(kit.pop("pair"), gen)
+    mk = mono_kernels(gen)
     kernels[0]["launches_kitti_path"] = kit["launches"]["fast_nms"]
     kernels[0]["launches_loop_path"] = loop["launches"]["fast_nms"]
     kernels[0]["stereo_pair"] = st["k1"]
@@ -763,6 +897,11 @@ def main() -> int:
     kernels[1]["stereo"] = st["k2"] | {
         "unit": "ms of one call at (left, right features), (local map, features), (features, snapshot rows) "
                 "at 2000 and 1000 features"}
+    kernels[0]["launches_mono_path"] = mono["launches"]["fast_nms"]
+    kernels[1]["launches_mono_path"] = mono["launches"]["hamming_shapes"]
+    kernels[1]["mono"] = mk["k2"] | {
+        "unit": "ms of one call at (features, features) bootstrap, (snapshot rows, features) triangulation, "
+                "(map capacity, features) tracking at 1000 features"}
     kernels[0]["launches_tum_path"] = tum["launches"]["fast_nms"]
     kernels[1]["launches_tum_path"] = tum["launches"]["hamming"]
     kernels[1]["recovery"] = {
@@ -793,6 +932,12 @@ def main() -> int:
         torch.cuda.synchronize()
         profiled_window(sysm3.track_stereo, pairs[12:20], prof_dir / "profile_kitti.txt",
                         f"KITTI-drive frames 12-19 at {KITTI_W}x{KITTI_H}, {KITTI_F} features")
+        sysm4 = SlamSystem(TrackingConfig(), enable_objects=True, device="cuda")
+        for g, d in mono["kept"][:12]:
+            sysm4.track_mono(g, d)
+        torch.cuda.synchronize()
+        profiled_window(sysm4.track_mono, mono["kept"][12:20], prof_dir / "profile_mono.txt",
+                        f"monocular frames 12-19 with objects at 640x480, {MONO_F} features")
 
         # Each kernel alone, `reps` back-to-back calls per shape in one
         # profiled window: device time per call, which the events of phase 6
@@ -807,7 +952,7 @@ def main() -> int:
                  (f"K1, one {KITTI_W}x{KITTI_H} stereo pair (2 x 8 levels x 2 thresholds)", KERNEL_NAMES[0],
                   lambda: fast_score_nms_pyramid(st["levels"], st["ths"]))]
         k2_all = [(sh, k2_in[sh]) for sh in ((8192, 4000), (2048, 2048))]
-        k2_all += list(rec["k2_inputs"].items()) + list(st["k2_inputs"].items())
+        k2_all += list(rec["k2_inputs"].items()) + list(st["k2_inputs"].items()) + list(mk["k2_inputs"].items())
         for (A, B), (a, b) in k2_all:
             alone.append((f"K2 at ({A}, {B})", KERNEL_NAMES[1], lambda a=a, b=b: hamming_packed(a, b)))
         with profile(activities=[ProfilerActivity.CUDA]) as pr:

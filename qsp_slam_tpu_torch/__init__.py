@@ -3,17 +3,23 @@
 The JAX package `qsp_slam_tpu` is the reference; this package keeps its
 subpackage and module names so every function has a findable counterpart:
 
-core        SE3 Lie group and pinhole camera math
+core        SE3/Sim3 Lie groups, pinhole camera, plane and quadric algebra
 ops         hand-written CUDA kernels (FAST score + NMS, packed Hamming)
               with their plain PyTorch versions
-opt         reprojection factors, pose-only LM, Schur local BA
-frontend    image pyramid, FAST, ORB, projection and mutual matching, PnP
-slam        SoA map, tracking, local mapping, keyframe snapshots, place
-              queries, relocalization, YAML config, checkpoints, facade
-data        synthetic room renderer, TUM reader, native PNG loader,
-              trajectory/map files, the make_tum fabricator
+opt         reprojection factors, pose-only LM, Schur local BA, Sim3
+              solver, pose graph, quadric factors
+frontend    image pyramid, FAST, ORB, stereo, projection, mutual and
+              epipolar matching, PnP, the two-view initializer
+perception  ground-plane RANSAC, aspect-prior (monocular) objects
+slam        SoA map, tracking, monocular bootstrap and triangulation,
+              local mapping, keyframe snapshots, place queries,
+              relocalization, loop closing, object table, YAML config,
+              checkpoints, facade
+data        synthetic scene renderer and its detector, TUM and KITTI
+              readers, native PNG loader, trajectory/map files, the
+              make_tum and make_kitti fabricators
 eval        trajectory ATE and RPE
-run_tum     the TUM RGB-D command line
+run_tum, run_kitti, run_mono   the RGB-D, stereo and monocular command lines
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; there is
 no silent CPU fallback (`resolve_device`).

@@ -1,13 +1,16 @@
 """Carry state from the JAX package into the port.
 
 This path has no learned weights; its state is the map, the keyframe
-snapshot store and the configuration.  The functions take the JAX objects
-as numpy arrays or plain field dictionaries, so this module never imports
+snapshot store, the object table, a frame (the monocular bootstrap's
+reference) and the configuration.  The functions take the JAX objects as
+numpy arrays or plain field dictionaries, so this module never imports
 JAX:
 
     map_state_from_numpy({k: np.asarray(v) for k, v in m._asdict().items()})
     loop_state_from_numpy({k: (v._asdict() if k == "db" else np.asarray(v))
                            for k, v in ls._asdict().items()})
+    object_table_from_numpy({k: np.asarray(v) for k, v in t._asdict().items()})
+    frame_from_numpy({"feats": f.feats._asdict(), "depth": ..., "u_right": ...})
     tracking_config_from_fields(cfg._asdict())
 """
 
@@ -19,12 +22,13 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .frontend.orb import OrbConfig
+from .frontend.orb import Features, OrbConfig
 from .frontend.pyramid import PyramidConfig
 from .slam.loop_closing import LoopState
 from .slam.map import MapState
+from .slam.objects import ObjectTable
 from .slam.place_recognition import PlaceDatabase
-from .slam.tracking import TrackingConfig
+from .slam.tracking import FrameData, TrackingConfig
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -48,6 +52,20 @@ def loop_state_from_numpy(arrays: Mapping[str, Any], device=None) -> LoopState:
         db=PlaceDatabase(**{k: _tensor(db[k], dev) for k in PlaceDatabase._fields}),
         **{k: _tensor(arrays[k], dev) for k in LoopState._fields if k != "db"},
     )
+
+
+def object_table_from_numpy(arrays: Mapping[str, Any], device=None) -> ObjectTable:
+    """ObjectTable fields (numpy arrays, the JAX dtypes) -> port ObjectTable."""
+    dev = resolve_device(device)
+    return ObjectTable(**{k: _tensor(arrays[k], dev) for k in ObjectTable._fields})
+
+
+def frame_from_numpy(arrays: Mapping[str, Any], device=None) -> FrameData:
+    """FrameData fields, with `feats` a mapping of Features fields."""
+    dev = resolve_device(device)
+    feats = arrays["feats"]
+    return FrameData(feats=Features(**{k: _tensor(feats[k], dev) for k in Features._fields}),
+                     depth=_tensor(arrays["depth"], dev), u_right=_tensor(arrays["u_right"], dev))
 
 
 def _fields(x) -> dict:

@@ -20,6 +20,19 @@ class Intrinsics(NamedTuple):
     cy: float
 
 
+def intrinsic_matrix(intr: Intrinsics, device=None) -> torch.Tensor:
+    """The (3, 3) f32 matrix K."""
+    return torch.tensor([[intr.fx, 0.0, intr.cx], [0.0, intr.fy, intr.cy], [0.0, 0.0, 1.0]],
+                        dtype=torch.float32, device=device)
+
+
+def pixel_rays(uv: torch.Tensor, intr: Intrinsics) -> torch.Tensor:
+    """Unit-depth rays K^-1 [u, v, 1] for pixels (..., 2) -> (..., 3)."""
+    x = (uv[..., 0] - intr.cx) / intr.fx
+    y = (uv[..., 1] - intr.cy) / intr.fy
+    return torch.stack([x, y, torch.ones_like(x)], dim=-1)
+
+
 def project(pts_cam: torch.Tensor, intr: Intrinsics) -> tuple[torch.Tensor, torch.Tensor]:
     """Camera-frame points (..., 3) -> pixels (..., 2), depth (...).
 

@@ -1,13 +1,13 @@
 """Persistence: trajectories, map snapshots, detection caches (counterpart
-of `qsp_slam_tpu/data/io.py`, point-only maps).
+of `qsp_slam_tpu/data/io.py`).
 
   * `save_trajectory_tum` / `load_trajectory_tum`: `t tx ty tz qx qy qz qw`,
     camera to world;
   * `save_trajectory_kitti`: 12 numbers per line (3x4 camera to world);
-  * `save_map` / `load_map`: the SoA map as one compressed npz, with the
-    JAX package's keys; `export_map_txt`: MapPoints.txt and Cameras.txt;
-  * the detection caches (plain numpy).
-Objects and their shape codes arrive with ROADMAP slice 6.
+  * `save_map` / `load_map`: the SoA map and the object table as one
+    compressed npz, with the JAX package's keys; `export_map_txt`:
+    MapPoints.txt, Cameras.txt and MapObjects.txt;
+  * the detection caches (plain numpy), the replay seam of detections.
 """
 
 from __future__ import annotations
@@ -18,9 +18,6 @@ import numpy as np
 import torch
 
 from ..core import lie
-
-_OBJECTS = "objects in saved maps arrive with ROADMAP slice 6 (quadric objects)"
-
 
 def _np(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
@@ -56,15 +53,19 @@ def load_trajectory_tum(path: str):
 
 
 def save_map(path: str, map_state, objects=None, codes=None) -> None:
-    """The SoA map (keyframes, points, observations) as one npz."""
-    if objects is not None or codes is not None:
-        raise NotImplementedError(_OBJECTS)
+    """The SoA map (keyframes, points, observations), with `objects` the
+    object table's geometry, labels and shape state, as one npz."""
     m = map_state
     data = {k: _np(getattr(m, k)) for k in (
         "kf_Tcw", "kf_valid", "pt_xyz", "pt_valid", "pt_desc",
         "ob_kf", "ob_pt", "ob_uv", "ob_ur", "ob_valid")}
     for k in ("num_kfs", "num_obs", "num_pts"):
         data[k] = int(getattr(m, k))
+    if objects is not None:
+        for k in ("ellipsoid", "label", "prob", "valid", "code", "Tow_shape", "shape_ok"):
+            data[f"obj_{k}"] = _np(getattr(objects, k))
+    if codes is not None:
+        data["obj_codes"] = _np(codes)
     np.savez_compressed(path, **data)
 
 
@@ -74,10 +75,9 @@ def load_map(path: str) -> dict:
 
 
 def export_map_txt(path_dir: str, map_state, objects=None) -> None:
-    """MapPoints.txt (x y z per valid point) and Cameras.txt (`k tx ty tz
-    qx qy qz qw`, camera to world, per keyframe)."""
-    if objects is not None:
-        raise NotImplementedError(_OBJECTS)
+    """MapPoints.txt (x y z per valid point), Cameras.txt (`k tx ty tz
+    qx qy qz qw`, camera to world, per keyframe) and, with `objects`,
+    MapObjects.txt (`id label` and the 9-vector per live object)."""
     os.makedirs(path_dir, exist_ok=True)
     pts = _np(map_state.pt_xyz)[_np(map_state.pt_valid)]
     with open(os.path.join(path_dir, "MapPoints.txt"), "w") as f:
@@ -90,6 +90,11 @@ def export_map_txt(path_dir: str, map_state, objects=None) -> None:
             q = _quat_from_R(T_wc[:3, :3])
             t = T_wc[:3, 3]
             f.write(f"{k} {t[0]} {t[1]} {t[2]} {q[0]} {q[1]} {q[2]} {q[3]}\n")
+    if objects is not None:
+        ells, labels = _np(objects.ellipsoid), _np(objects.label)
+        with open(os.path.join(path_dir, "MapObjects.txt"), "w") as f:
+            for i in np.where(_np(objects.valid))[0]:
+                f.write(f"{i} {labels[i]} " + " ".join(str(x) for x in ells[i]) + "\n")
 
 
 def save_detection_cache(path: str, detections: dict) -> None:

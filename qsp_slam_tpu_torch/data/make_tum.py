@@ -1,13 +1,16 @@
 """Fabricate a TUM-RGB-D-format sequence from the synthetic renderer
-(counterpart of `qsp_slam_tpu/data/make_tum.py`, object-free scenes):
-`rgb/` 8-bit and `depth/` 16-bit gray PNGs at the TUM depth scale,
-`rgb.txt`, `depth.txt` and `groundtruth.txt`, which `run_tum` and
-`TumSequence` read.  The room is `make_room(seed=seed)`, the same room the
-JAX package's object-free scene renders.  PNGs are written by a small
-standard-library encoder (zlib, filter 0), so no imaging package is needed.
+(counterpart of `qsp_slam_tpu/data/make_tum.py`): `rgb/` 8-bit and
+`depth/` 16-bit gray PNGs at the TUM depth scale, `rgb.txt`, `depth.txt`
+and `groundtruth.txt`, which `run_tum`, `run_mono` and `TumSequence`
+read.  The scene is `make_scene(num_objects, seed)`, the JAX package's;
+with `--detections`, `detections/<frame>.npz` holds each frame's
+ground-truth detections with instance masks (the replay seam `run_mono
+--detections` reads).  PNGs are written by a small standard-library
+encoder (zlib, filter 0), so no imaging package is needed.
 
-    python -m qsp_slam_tpu_torch.data.make_tum OUT_DIR [--frames 640]
-        [--step 0.01] [--pitch 0.35] [--seed 1] [--distort K1,K2,P1,P2,K3] [--cpu]
+    python -m qsp_slam_tpu_torch.data.make_tum OUT_DIR [--frames 640] [--objects N]
+        [--step 0.01] [--pitch 0.35] [--seed 1] [--detections]
+        [--distort K1,K2,P1,P2,K3] [--cpu]
 """
 
 from __future__ import annotations
@@ -24,10 +27,9 @@ from .. import resolve_device
 from ..core import lie
 from ..core.camera import undistort_points
 from ..slam.tracking import TrackingConfig
-from .render import make_room, orbit_trajectory, render_frame
+from .io import save_detection_cache
+from .render import gt_detections, make_scene, orbit_trajectory, render_scene
 from .tum import DEPTH_SCALE
-
-_OBJECTS = "fabricated objects and detections arrive with ROADMAP slice 6 (quadric objects)"
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
@@ -75,8 +77,6 @@ def _distortion_warp(cfg: TrackingConfig, distort, device):
 def make_sequence(out_dir: str, num_frames: int = 640, num_objects: int = 0, step: float = 0.01,
                   pitch: float = 0.35, seed: int = 1, with_detections: bool = False,
                   fps: float = 30.0, distort: tuple | None = None, device=None) -> None:
-    if num_objects > 0 or with_detections:
-        raise NotImplementedError(_OBJECTS)
     dev = resolve_device(device)
     cfg = TrackingConfig()
     os.makedirs(os.path.join(out_dir, "rgb"), exist_ok=True)
@@ -92,12 +92,17 @@ def make_sequence(out_dir: str, num_frames: int = 640, num_objects: int = 0, ste
                     f"Camera.width: {cfg.width}\nCamera.height: {cfg.height}\n"
                     f"Camera.k1: {k1}\nCamera.k2: {k2}\n"
                     f"Camera.p1: {p1}\nCamera.p2: {p2}\nCamera.k3: {k3}\n")
-    room = make_room(seed=seed, device=dev)
+    scene = make_scene(num_objects=max(num_objects, 1), seed=seed, device=dev)
+    if num_objects == 0:
+        scene = scene._replace(ellipsoids=scene.ellipsoids[:0], labels=scene.labels[:0], albedo=scene.albedo[:0])
+    det_dir = os.path.join(out_dir, "detections")
+    if with_detections:
+        os.makedirs(det_dir, exist_ok=True)
     traj = orbit_trajectory(num_frames, step=step, pitch=pitch)
     rgb_lines, depth_lines, gt_lines = [], [], []
     for i in range(num_frames):
         t = i / fps
-        gray, depth = render_frame(room, traj[i], cfg.intr, cfg.height, cfg.width)
+        gray, depth, inst = render_scene(scene, traj[i], cfg.intr, cfg.height, cfg.width)
         if warp is not None:
             gray, depth = warp(gray, depth)
         g8 = torch.clamp(gray, 0, 255).to(torch.uint8).cpu().numpy()
@@ -113,6 +118,9 @@ def make_sequence(out_dir: str, num_frames: int = 640, num_objects: int = 0, ste
         q = lie.rotmat_to_quat(torch.from_numpy(T_wc[:3, :3].astype(np.float64))).numpy()
         tx, ty, tz = T_wc[:3, 3]
         gt_lines.append(f"{t:.6f} {tx:.6f} {ty:.6f} {tz:.6f} {q[0]:.6f} {q[1]:.6f} {q[2]:.6f} {q[3]:.6f}")
+        if with_detections:
+            det = gt_detections(scene, traj[i], cfg.intr, instance=inst)
+            save_detection_cache(os.path.join(det_dir, f"{i}.npz"), {k: v.cpu().numpy() for k, v in det.items()})
     hdr = "# fabricated TUM-format sequence (qsp_slam_tpu_torch synthetic renderer)\n"
     for name, lines in (("rgb.txt", rgb_lines), ("depth.txt", depth_lines), ("groundtruth.txt", gt_lines)):
         with open(os.path.join(out_dir, name), "w") as f:

@@ -1,9 +1,9 @@
 """Synthetic frames: a textured box room with ellipsoid objects, ray-cast
 per pixel (counterpart of `qsp_slam_tpu/data/render.py`: `make_room`,
-`make_scene`, `orbit_trajectory`, `render_frame`, `render_scene`).  The
-textures and object placements come from the same seeded numpy
-generators, so both packages render the same scene.  Table slabs
-(`num_tables > 0`) arrive with the objects slice.
+`make_scene`, `orbit_trajectory`, `render_frame`, `render_scene`,
+`gt_detections`).  The textures and object placements come from the same
+seeded numpy generators, so both packages render the same scene.  Table
+slabs (`num_tables > 0`) arrive with the RGB-D object path.
 """
 
 from __future__ import annotations
@@ -14,8 +14,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core import lie
-from ..core.camera import Intrinsics
+from ..core import lie, quadric
+from ..core.camera import Intrinsics, intrinsic_matrix
 
 
 class BoxRoom(NamedTuple):
@@ -171,22 +171,10 @@ def make_scene(
     )
 
 
-def _euler_to_rotmat(rpy: torch.Tensor) -> torch.Tensor:
-    """XYZ Euler (roll, pitch, yaw) -> R = Rz(yaw) Ry(pitch) Rx(roll)
-    (the objects slice's `core/quadric.py` will own this)."""
-    r, p, y = rpy[..., 0], rpy[..., 1], rpy[..., 2]
-    cr, sr, cp, sp, cy, sy = torch.cos(r), torch.sin(r), torch.cos(p), torch.sin(p), torch.cos(y), torch.sin(y)
-    return torch.stack([
-        torch.stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr], dim=-1),
-        torch.stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr], dim=-1),
-        torch.stack([-sp, cp * sr, cp * cr], dim=-1),
-    ], dim=-2)
-
-
 def _ray_ellipsoid(e: torch.Tensor, origin: torch.Tensor, rays: torch.Tensor):
     """Rays (..., 3) from `origin` against ellipsoid e (9,) -> hit distance
     (...,) (inf on a miss) and unit world normals (..., 3)."""
-    R = _euler_to_rotmat(e[3:6])
+    R = quadric.euler_to_rotmat(e[3:6])
     inv_scale = 1.0 / e[6:9]
     # world -> unit-sphere coordinates: x' = S^-1 R^T (x - c)
     o_l = (R.T @ (origin - e[0:3])) * inv_scale
@@ -243,6 +231,29 @@ def render_scene(
     hit = torch.isfinite(t_best) & ((t_best < depth_bg) | (depth_bg <= 0.0))
     return (torch.where(hit, g_obj, gray_bg), torch.where(hit, t_best, depth_bg),
             torch.where(hit, o_best.to(torch.int32), -1))
+
+
+def gt_detections(scene: Scene, T_cw, intr: Intrinsics, width: int = 640, height: int = 480,
+                  min_pixels: int = 400, instance=None) -> dict:
+    """A detector from the ground truth: each object's projected box,
+    clipped to the image, with its label; valid when the object is in
+    front and its clipped box exceeds `min_pixels` (prob 0.99, else 0).
+    With the `instance` image of `render_scene`, also "mask" (O, H, W)."""
+    dev = scene.ellipsoids.device
+    if not isinstance(T_cw, torch.Tensor):
+        T_cw = torch.from_numpy(np.asarray(T_cw, np.float32))
+    T_cw = T_cw.to(dev, torch.float32)
+    e = scene.ellipsoids
+    bbox = quadric.project_bbox(e, T_cw, intrinsic_matrix(intr, dev))
+    lim = (width - 1, height - 1, width - 1, height - 1)
+    b = torch.stack([torch.clamp(bbox[:, i], 0, lim[i]) for i in range(4)], dim=-1)
+    area = torch.clamp(b[:, 2] - b[:, 0], min=0) * torch.clamp(b[:, 3] - b[:, 1], min=0)
+    valid = quadric.check_observability(e, T_cw) & (area > min_pixels)
+    out = {"bbox": b, "label": scene.labels, "prob": torch.where(valid, 0.99, 0.0), "valid": valid}
+    if instance is not None:
+        ids = torch.arange(e.shape[0], dtype=torch.int32, device=dev)
+        out["mask"] = instance.to(dev)[None] == ids[:, None, None]
+    return out
 
 
 def orbit_trajectory(num_frames: int, step: float = 0.02, pitch: float = 0.0) -> np.ndarray:

@@ -8,19 +8,25 @@ The projection search takes the distance matrix as an argument so tracking
 computes it once per frame and shares it between the 1x and 2x radius
 searches, whose masks are all that differ; the mutual match takes it too,
 so relocalization makes one K2 call for all its candidate keyframes.
+The rotation histogram and the epipolar gate serve the monocular
+bootstrap and keyframe triangulation.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
+from ..core.camera import Intrinsics, intrinsic_matrix
 from ..ops.hamming import hamming_packed
+from .fast import topk_stable
 from .orb import pack_bits
 
 TH_LOW = 50  # reference ORBmatcher::TH_LOW
 TH_HIGH = 100  # reference ORBmatcher::TH_HIGH
+HISTO_BINS = 30
 
 _BIG = 1 << 20
 _INT_MAX = 2**31 - 1
@@ -127,6 +133,50 @@ def mutual_match(
     back = torch.gather(bwd.idx, -1, torch.clamp(fwd.idx, min=0).long())
     mutual = fwd.valid & (back == a_idx)
     return MatchResult(idx=torch.where(mutual, fwd.idx, -1), dist=fwd.dist, valid=mutual)
+
+
+def rotation_consistency(angle_a: torch.Tensor, angle_b: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Keep the matches whose angle difference falls in one of the 3 most
+    populated of 30 bins (the rotation histogram of the reference
+    matcher); count ties go to the lower bin."""
+    two_pi = 2.0 * math.pi
+    rot = torch.remainder(angle_a - angle_b, two_pi)
+    bins = torch.clamp((rot * (HISTO_BINS / two_pi)).to(torch.int32), 0, HISTO_BINS - 1)
+    counts = torch.bincount(torch.where(valid, bins, HISTO_BINS).long(), minlength=HISTO_BINS + 1)
+    top3 = topk_stable(counts[:HISTO_BINS], 3)[1]
+    return valid & (bins[:, None] == top3[None, :]).any(dim=1)
+
+
+def epipolar_mask(
+    uv_a: torch.Tensor,  # (A, 2) pixels in camera 1
+    uv_b: torch.Tensor,  # (B, 2) pixels in camera 2
+    T_21: torch.Tensor,  # (4, 4) camera 1 -> camera 2
+    intr: Intrinsics,
+    octave_b: torch.Tensor | None = None,
+    scale_factor: float = 1.2,
+    chi2: float = 3.84,
+    sigma_px: float = 1.0,
+) -> torch.Tensor:
+    """(A, B) gate of triangulation matching: a candidate in image 2 lies
+    within chi2 * sigma(octave)^2 (squared pixels) of the epipolar line of
+    the image-1 feature, F21 = K^-T [t]x R K^-1."""
+    R, t = T_21[:3, :3], T_21[:3, 3]
+    z = torch.zeros((), dtype=uv_a.dtype, device=uv_a.device)
+    tx = torch.stack([
+        torch.stack([z, -t[2], t[1]]), torch.stack([t[2], z, -t[0]]), torch.stack([-t[1], t[0], z])
+    ]).to(uv_a.dtype)
+    Kinv = torch.linalg.inv(intrinsic_matrix(intr, uv_a.device))
+    F21 = Kinv.T @ tx @ R @ Kinv
+    xa = torch.cat([uv_a, torch.ones_like(uv_a[:, :1])], dim=-1)
+    lines = xa @ F21.T  # (A, 3) epipolar lines in image 2
+    xb = torch.cat([uv_b, torch.ones_like(uv_b[:, :1])], dim=-1)
+    num = torch.abs(lines @ xb.T)
+    den = torch.sqrt(torch.clamp(lines[:, 0] ** 2 + lines[:, 1] ** 2, min=1e-12))[:, None]
+    d = num / den
+    sigma2 = sigma_px ** 2
+    if octave_b is not None:
+        sigma2 = (sigma2 * (scale_factor ** octave_b.to(uv_a.dtype)) ** 2)[None, :]
+    return (d * d) < (chi2 * sigma2)
 
 
 def word_mask(word_a: torch.Tensor, word_b: torch.Tensor) -> torch.Tensor:

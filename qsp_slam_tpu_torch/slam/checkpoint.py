@@ -1,14 +1,16 @@
-"""Save and resume a point-only RGB-D or stereo session (counterpart of
+"""Save and resume a session (counterpart of
 `qsp_slam_tpu/slam/checkpoint.py`): the map, the snapshot store, the
-tracker's fields, the sensor, the loop count and the consistency gate's
-history, the stats, the trajectory and the capacities, in one npz with
-the JAX package's keys (`map.*`, `loop.*`, `Tcw`, `sensor`,
-`loops_closed`, `loop_gate_json`, ...).  So a checkpoint the JAX package
-wrote for such a session resumes in the port, which carries the state
-across as `convert.py` does.
+object table, the ground plane, the tracker's fields, the sensor, the
+monocular bootstrap's reference frame and its age, the loop count and the
+consistency gate's history, the stats, the trajectory and the
+capacities, in one npz with the JAX package's keys (`map.*`, `loop.*`,
+`obj.*`, `monoref.*`, `Tcw`, `sensor`, `ground_plane`, ...).  So a
+checkpoint the JAX package wrote resumes in the port, which carries the
+state across as `convert.py` does.  The port also keeps `gp_inliers`, the
+support of the monocular ground plane (a JAX checkpoint resumes it at 0).
 
-A checkpoint with state of a later slice (a monocular session, live
-objects) raises `NotImplementedError` naming the slice.
+A checkpoint with Manhattan planes or object relations (the RGB-D
+object path) raises `NotImplementedError` naming its slice.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import json
 import numpy as np
 import torch
 
-from ..convert import loop_state_from_numpy, map_state_from_numpy
+from ..convert import frame_from_numpy, loop_state_from_numpy, map_state_from_numpy, object_table_from_numpy
 from .loop_closing import ConsistencyGate
 
 
@@ -70,6 +72,7 @@ def save_checkpoint(path: str, system) -> None:
     data = {}
     data.update(_flatten("map.", system.map_state))
     data.update(_flatten("loop.", system.loop_state))
+    data.update(_flatten("obj.", system.objects))
     data["Tcw"] = system.Tcw
     data["velocity"] = system.velocity
     data["initialized"] = np.asarray(system.initialized)
@@ -80,6 +83,12 @@ def save_checkpoint(path: str, system) -> None:
     data["stats_json"] = np.asarray(json.dumps(system.stats))
     data["trajectory"] = np.stack(system.trajectory) if system.trajectory else np.zeros((0, 4, 4))
     data["kf_fresh"] = np.asarray(system._kf_fresh)
+    if system.ground_plane is not None:
+        data["ground_plane"] = system.ground_plane
+    data["gp_inliers"] = np.asarray(system._gp_inliers)
+    if system._mono_ref is not None:
+        data.update(_flatten("monoref.", system._mono_ref))
+        data["mono_ref_age"] = np.asarray(system._mono_ref_age)
     gate = system._loop_gate
     data["loop_gate_json"] = np.asarray(json.dumps(
         {"required": gate.required, "neighborhood": gate.neighborhood, "history": gate.history}))
@@ -87,13 +96,9 @@ def save_checkpoint(path: str, system) -> None:
 
 
 def _refuse_later(data: dict) -> None:
-    sensor = str(data["sensor"]) if "sensor" in data else "rgbd"
-    if sensor == "mono":
-        raise NotImplementedError("a mono session resumes with ROADMAP slice 5 (monocular)")
-    if "monoref.depth" in data:
-        raise NotImplementedError("a monocular bootstrap reference resumes with ROADMAP slice 5 (monocular)")
-    if ("obj.valid" in data and np.asarray(data["obj.valid"]).any()) or "ground_plane" in data:
-        raise NotImplementedError("object state resumes with ROADMAP slice 6 (quadric objects)")
+    if ("plane.valid" in data and np.asarray(data["plane.valid"]).any()) or "rel.kind" in data:
+        raise NotImplementedError("Manhattan planes and object relations resume with ROADMAP slice 6 "
+                                  "(quadric objects)")
 
 
 def load_checkpoint(path: str, system) -> None:
@@ -107,6 +112,17 @@ def load_checkpoint(path: str, system) -> None:
     system.map_state = map_state_from_numpy(_fields("map.", data), system.device)
     system.loop_state = loop_state_from_numpy(_fields("loop.", data), system.device)
     system.kmax, system.nmax, system.emax = system.map_state.capacity
+    if "obj.valid" in data:
+        system.objects = object_table_from_numpy(_fields("obj.", data), system.device)
+        system.omax = int(system.objects.valid.shape[0])
+    gp = data.get("ground_plane")
+    system.ground_plane = None if gp is None else np.asarray(gp, np.float32)
+    system._gp_inliers = int(data.get("gp_inliers", 0))
+    if "monoref.depth" in data:
+        system._mono_ref = frame_from_numpy(_fields("monoref.", data), system.device)
+        system._mono_ref_age = int(data["mono_ref_age"])
+    else:
+        system._mono_ref, system._mono_ref_age = None, 0
     system.Tcw = np.asarray(data["Tcw"], np.float32)
     system.velocity = np.asarray(data["velocity"], np.float32)
     system.initialized = bool(data["initialized"])

@@ -12,8 +12,11 @@ verification and the pose-graph correction.
   with the two-sided image gate, growth, re-solve, image-space polish.
 - `correct_loop`: the essential graph (covisibility-weighted odometry
   chain, the strongest covisibility edges, the loop edge), LM over it, and
-  every map point moved with its anchor keyframe's correction.  Object
-  re-anchoring waits for the objects slice.
+  every map point moved with its anchor keyframe's correction, every
+  object with the correction of the keyframe that last observed it.
+  Scale drift (the monocular sensor) is corrected over Sim(3).
+- `feature_points_from_matches`: the monocular snapshot's 3D, the tracked
+  map points scattered onto the frame's features.
 
 The RANSAC draws come from a `torch.Generator`; `draw` lets a caller
 supply them (see `opt.sim3_solver`).
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core import lie
+from ..core import lie, quadric
 from ..core.camera import Intrinsics, project
 from ..frontend import matcher
 from ..frontend.fast import topk_stable
@@ -41,7 +44,8 @@ from ..opt.sim3_solver import (
     sim3_image_inliers,
     sim3_sample,
 )
-from .map import MapState
+from .map import MapState, scatter_set_last
+from .objects import ObjectTable, merge_duplicates
 from .place_recognition import (
     PlaceDatabase,
     add_signature,
@@ -119,6 +123,29 @@ def snapshot_keyframe(
         kf_feat_ok=put(ls.kf_feat_ok, fit_rows(feat_valid, False)),
         kf_octave=put(ls.kf_octave, fit_rows(octave.to(torch.int8), 0)),
     )
+
+
+def feature_points_from_matches(
+    pt_xyz: torch.Tensor,  # (N, 3) world map points
+    match_pt: torch.Tensor,  # (N,) feature matched per map point
+    match_inlier: torch.Tensor,  # (N,) bool
+    Tcw: torch.Tensor,  # (4, 4)
+    num_feats: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Camera-frame 3D per feature from this frame's inlier map-point
+    matches -> (points (F, 3), ok (F,)): a monocular keyframe has no
+    depth, but its tracked map points are 3D, which relocalization and
+    loop verification read from the snapshot.  Indices scatter as the
+    reference's `.at[].set(mode="drop")` into F + 1 rows: a negative one
+    counts from the end, one out of range is dropped."""
+    pc = lie.transform_points(Tcw, pt_xyz)
+    tgt = torch.where(match_inlier, match_pt.long(), num_feats)
+    tgt = torch.where(tgt < 0, tgt + num_feats + 1, tgt)
+    tgt = torch.where((tgt >= 0) & (tgt <= num_feats), tgt, num_feats)
+    pts = scatter_set_last(torch.zeros(num_feats + 1, 3, device=pt_xyz.device), tgt, pc)[:num_feats]
+    ok = scatter_set_last(torch.zeros(num_feats + 1, dtype=torch.bool, device=pt_xyz.device), tgt,
+                          match_inlier)[:num_feats]
+    return pts, ok
 
 
 def grow_loop_state(ls: LoopState, kmax: int) -> LoopState:
@@ -320,13 +347,14 @@ def detect_loop(
 
 def correct_loop(
     m: MapState,
+    objects: ObjectTable,
     cur_kf: int,
     det: LoopDetection,
     fix_scale: bool = True,
     iters: int = 15,
-) -> MapState:
+) -> tuple[MapState, ObjectTable]:
     """Pose-graph correction of the keyframe chain and re-anchoring of the
-    map points.
+    map points and objects; `fix_scale=False` optimizes over Sim(3).
 
     Edges: the odometry chain (i, i+1), weighted by the pair's shared
     observations (full trust at 100; a handoff with no common structure is
@@ -334,7 +362,9 @@ def correct_loop(
     pairs (>= 20 shared points, not adjacent), and the loop edge (weight 5
     when found).  Keyframe 0 and unused slots are fixed.  Each point then
     moves with the correction of its anchor, the first keyframe that
-    observes it."""
+    observes it; each object with the correction of the keyframe whose
+    pose its newest observation stored (none when no keyframe pose
+    matches within 1e-4), and then duplicates are merged."""
     dev = m.device
     Kmax, Nmax = m.kf_Tcw.shape[0], m.pt_xyz.shape[0]
     K = m.num_kfs
@@ -382,4 +412,14 @@ def correct_loop(
     anchor = anchor.scatter_reduce(0, ob_pt, torch.where(m.ob_valid, ob_kf, Kmax - 1), "amin")
     Ta = T_corr[torch.clamp(anchor, 0, Kmax - 1)]
     pts_new = torch.einsum("nij,nj->ni", Ta[:, :3, :3], m.pt_xyz) + Ta[:, :3, 3]
-    return m._replace(kf_Tcw=new_poses, pt_xyz=torch.where(m.pt_valid[:, None], pts_new, m.pt_xyz))
+    m = m._replace(kf_Tcw=new_poses, pt_xyz=torch.where(m.pt_valid[:, None], pts_new, m.pt_xyz))
+
+    O, M_ring = objects.obs_weight.shape
+    last_slot = torch.remainder(objects.obs_next - 1, M_ring).long()
+    T_obs = objects.obs_Tcw[torch.arange(O, device=dev), last_slot]  # (O, 4, 4)
+    diff = torch.sum(torch.abs(poses[None] - T_obs[:, None]), dim=(2, 3))  # (O, Kmax)
+    k = torch.argmin(diff, dim=1)
+    good = (torch.gather(diff, 1, k[:, None])[:, 0] < 1e-4) & objects.valid & (objects.obs_count > 0)
+    e_new = quadric.transform_ellipsoid(objects.ellipsoid, T_corr[torch.where(good, k, 0)])
+    objects = objects._replace(ellipsoid=torch.where(good[:, None], e_new, objects.ellipsoid))
+    return m, merge_duplicates(objects, dist_threshold=0.5)

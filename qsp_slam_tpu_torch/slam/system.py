@@ -1,5 +1,6 @@
 """System facade: the single-controller SLAM loop (counterpart of
-`qsp_slam_tpu/slam/system.py`, point-only RGB-D and stereo tracking).
+`qsp_slam_tpu/slam/system.py`: point-only RGB-D and stereo tracking,
+monocular tracking with its object landmarks).
 
 Per frame: features + tracking, a host-side consistency gate and keyframe
 policy; on a keyframe: insertion, covisibility local BA, point fusion,
@@ -8,9 +9,12 @@ on, loop closing (top-8 place query, consistency gate, Sim3
 verification, pose-graph correction and global BA).  A lost frame goes
 through the recovery tiers (reference-keyframe tracking, top-k
 relocalization, then the early-map reset or a coast on the prediction).
-Localization-only mode tracks against a frozen map.  Capabilities of
-later port slices raise `NotImplementedError` naming the slice (see
-ROADMAP.md queue A).
+Localization-only mode tracks against a frozen map.  The monocular
+sensor bootstraps from two views, triangulates new points against the
+previous keyframe, closes loops over Sim(3), and spawns object landmarks
+from detection boxes, the ground plane of its sparse map and aspect
+priors.  Capabilities of later port slices raise `NotImplementedError`
+naming the slice (see ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -24,7 +28,10 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core.camera import backproject
+from ..core import plane as plane_mod
+from ..core.camera import backproject, intrinsic_matrix
+from ..perception.groundplane import adaptive_inlier_th, estimate_ground_plane_points
+from ..perception.prior_infer import default_priors, generate_init_guess
 from . import map as mapmod
 from .local_mapping import (
     cull_keyframes,
@@ -38,11 +45,23 @@ from .loop_closing import (
     LoopState,
     correct_loop,
     empty_loop_state,
+    feature_points_from_matches,
     grow_loop_state,
     snapshot_keyframe,
     verify_loop,
 )
-from .map import MapState
+from .map import MapState, scatter_set_last
+from .mono import mono_initialize, triangulate_new_points
+from .objects import (
+    ObjectTable,
+    advance_dynamic_objects,
+    associate_detections,
+    cull_objects,
+    empty_objects,
+    integrate_keyframe,
+    merge_duplicates,
+    refine_objects_mono,
+)
 from .place_recognition import bow_signature, query_topk_with_ref
 from .relocalization import relocalize, track_reference_keyframe
 from .tracking import (
@@ -57,8 +76,8 @@ from .tracking import (
     process_frame_stereo,
 )
 
+_RGBD_OBJECTS = "RGB-D and stereo detections arrive with ROADMAP slice 6 (quadric objects)"
 _LATER = {
-    "enable_objects": "slice 6 (quadric objects)",
     "detector": "slice 8 (learned detectors)",
     "shape_prior": "slice 7 (DeepSDF shapes)",
     "mesh": "slice 9 (distribution)",
@@ -84,6 +103,10 @@ class SlamSystem:
     nmax: int = 8192
     emax: int = 65536
     ba_window: int = 8
+    omax: int = 32
+    # Object landmarks from detections (monocular sensor).  Off by default,
+    # where the JAX package's default is on: `run_mono` turns it on when
+    # given detections, as the JAX command line does.
     enable_objects: bool = False
     enable_loop_closing: bool = True
     # Relocalization against the keyframe snapshots (always maintained).
@@ -91,12 +114,17 @@ class SlamSystem:
     # Track and relocalize against the frozen map: no keyframes, no BA, no
     # database growth, no automatic reset.
     localization_only: bool = False
+    # Per-label aspect priors of the monocular objects (`AspectPriors`);
+    # None is the neutral 1:1.
+    aspect_priors: Optional[object] = None
     detector: Optional[tuple] = None
     shape_prior: Optional[tuple] = None
     mesh: Optional[object] = None
     device: Optional[str] = None
     map_state: MapState = field(init=False)
     loop_state: LoopState = field(init=False)
+    objects: ObjectTable = field(init=False)
+    ground_plane: Optional[np.ndarray] = field(init=False, default=None)  # world frame (4,)
     Tcw: np.ndarray = field(init=False)
     velocity: np.ndarray = field(init=False)
     loops_closed: int = 0
@@ -105,19 +133,14 @@ class SlamSystem:
     inliers_at_last_kf: int = 0
     trajectory: list = field(default_factory=list)
     stats: dict = field(default_factory=lambda: {"frames": 0, "keyframes": 0,
-                                                 "track_ms": [], "ba_ms": []})
+                                                 "track_ms": [], "ba_ms": [], "obj_ms": []})
 
     def __post_init__(self):
         self._refuse_later()
         self.device = resolve_device(self.device)
-        self.map_state = mapmod.empty_map(self.kmax, self.nmax, self.emax, self.device)
-        self.loop_state = empty_loop_state(self.kmax, device=self.device)
-        self.Tcw = np.eye(4, dtype=np.float32)
-        self.velocity = np.eye(4, dtype=np.float32)
-        self._kf_fresh = False
-        self._lost_streak = 0
         self._sensor = "rgbd"
         self._loop_gate = ConsistencyGate()
+        self._clear_state()
 
     def _refuse_later(self):
         for name, where in _LATER.items():
@@ -137,11 +160,22 @@ class SlamSystem:
             self.velocity = np.eye(4, dtype=np.float32)
 
     def reset(self) -> None:
-        """Drop the map and the snapshot store (rebuilt empty at their
-        current capacities, so snapshot slot k is again keyframe k) and
-        return to the uninitialized state; the next frame re-bootstraps."""
+        """Drop the map, the snapshot store (rebuilt empty at their current
+        capacities, so snapshot slot k is again keyframe k), the objects,
+        the ground plane and the monocular reference, and return to the
+        uninitialized state; the next frame re-bootstraps."""
+        self._clear_state()
+        self.stats["kf_frames"] = []
+        self.stats["resets"] = self.stats.get("resets", 0) + 1
+
+    def _clear_state(self) -> None:
         self.map_state = mapmod.empty_map(self.kmax, self.nmax, self.emax, self.device)
         self.loop_state = empty_loop_state(self.kmax, device=self.device)
+        self.objects = empty_objects(self.omax, device=self.device)
+        self.ground_plane = None
+        self._gp_inliers = 0
+        self._mono_ref = None
+        self._mono_ref_age = 0
         self.Tcw = np.eye(4, dtype=np.float32)
         self.velocity = np.eye(4, dtype=np.float32)
         self.initialized = False
@@ -150,15 +184,13 @@ class SlamSystem:
         self._lost_streak = 0
         self._kf_fresh = False
         self._loop_gate.reset()
-        self.stats["kf_frames"] = []
-        self.stats["resets"] = self.stats.get("resets", 0) + 1
 
     # ------------------------------------------------------------------
     def track_rgbd(self, gray, depth, detections=None) -> np.ndarray:
         """Process one RGB-D frame (gray (H, W) uint8/f32, depth (H, W)
         uint16 PNG units or f32 meters); returns the estimated T_cw."""
         if detections is not None:
-            raise NotImplementedError("detections arrive with ROADMAP " + _LATER["enable_objects"])
+            raise NotImplementedError(_RGBD_OBJECTS)
         self._sensor = "rgbd"
         self._ensure_capacity()
         gray = _to_device(gray, self.device)
@@ -182,7 +214,7 @@ class SlamSystem:
         then the same tracking, recovery and keyframe policy as RGB-D;
         returns the estimated T_cw of the left camera."""
         if detections is not None:
-            raise NotImplementedError("detections arrive with ROADMAP " + _LATER["enable_objects"])
+            raise NotImplementedError(_RGBD_OBJECTS)
         self._sensor = "stereo"
         self._ensure_capacity()
         gl = _to_device(gray_left, self.device)
@@ -195,6 +227,32 @@ class SlamSystem:
         Tcw_pred = self.velocity @ self.Tcw
         frame, res = process_and_track_stereo(
             gl, gr, self.map_state, torch.from_numpy(Tcw_pred).to(self.device), self.cfg
+        )
+        return self._post_track(frame, res, Tcw_pred, t0)
+
+    def track_mono(self, gray, detections=None) -> np.ndarray:
+        """Process one monocular frame (gray (H, W) uint8/f32); returns the
+        estimated T_cw.  Until the two-view bootstrap succeeds the pose
+        stays at the identity; then the frame goes through the RGB-D
+        frame code at zero depth and the same tracking, recovery and
+        keyframe policy.  `detections` (dict of "bbox" (D, 4), "label",
+        "prob", "valid", or a callable giving one) feed the object
+        landmarks at keyframes when `enable_objects` is on."""
+        self._sensor = "mono"
+        self._pending_detections = detections
+        self._ensure_capacity()
+        cfg = self.cfg
+        gray = _to_device(gray, self.device)
+        zero_depth = torch.zeros((cfg.height, cfg.width), dtype=torch.float32, device=self.device)
+        if not self.initialized:
+            if not self.localization_only:  # a frozen map needs a map
+                self._mono_bootstrap(process_frame(gray, zero_depth, cfg))
+            self.trajectory.append(self.Tcw.copy())
+            return self.Tcw
+        t0 = time.perf_counter()
+        Tcw_pred = self.velocity @ self.Tcw
+        frame, res = process_and_track(
+            gray, zero_depth, self.map_state, torch.from_numpy(Tcw_pred).to(self.device), cfg
         )
         return self._post_track(frame, res, Tcw_pred, t0)
 
@@ -231,7 +289,10 @@ class SlamSystem:
                 self.frames_since_kf, num_inliers, self.inliers_at_last_kf, cfg,
                 tracked_close=int(n_close_trk), untracked_close=int(n_close_new),
             ):
-                self._insert_keyframe(frame, res)
+                if self._sensor == "mono":
+                    self._insert_mono_keyframe(frame, res)
+                else:
+                    self._insert_keyframe(frame, res)
         elif not self._recover(frame):
             if (not self.localization_only and self._lost_streak >= 2
                     and int(self.map_state.num_kfs) <= 5):
@@ -239,7 +300,10 @@ class SlamSystem:
                 # against: the bootstrap is poisoned, so re-seed the map
                 # from this frame rather than coast.
                 self.reset()
-                self._initialize(frame)
+                if self._sensor == "mono":  # back to the two-view bootstrap
+                    self._mono_ref = frame
+                else:
+                    self._initialize(frame)
             else:
                 self.Tcw = np.asarray(Tcw_pred, dtype=np.float32)
         self.stats["frames"] += 1
@@ -359,17 +423,139 @@ class SlamSystem:
         self.stats.setdefault("kf_frames", []).append(len(self.trajectory))
         self._loop_closing(frame, kf_id)
 
-    def _loop_closing(self, frame: FrameData, kf_id: int):
-        """Snapshot the keyframe (always: relocalization reads the store),
-        then, from keyframe 12 on, loop closing in three stages: the top-8
-        place query above the adaptive floor (the worst score among the
-        recent covisible keyframes, at least 0.02); the consistency gate;
-        and, for a consistent candidate, Sim3 verification, which must
-        find >= 40 inliers.  A verified loop is corrected by the pose
-        graph and a global BA."""
+    # ------------------------------------------------------------------
+    def _mono_bootstrap(self, frame: FrameData):
+        """Two-view initialization against the reference frame (the first
+        frame, renewed when it is more than 10 attempts old).  Success
+        makes keyframes 0 (identity) and 1 with the triangulated points,
+        snapshots both, and starts tracking.  The draws come from a CPU
+        generator seeded 31, as the reference seeds every attempt."""
+        if self._mono_ref is None:
+            self._mono_ref, self._mono_ref_age = frame, 0
+            return
+        self._mono_ref_age += 1
+        init = mono_initialize(self._mono_ref, frame, self.cfg, torch.Generator().manual_seed(31))
+        if not bool(init.ok):
+            if self._mono_ref_age > 10:
+                self._mono_ref, self._mono_ref_age = frame, 0
+            return
+        dev = self.device
+        m, kf0 = mapmod.add_keyframe(self.map_state, torch.eye(4, device=dev))
+        m, kf1 = mapmod.add_keyframe(m, init.T_cw2)
+        F = init.pts_w.shape[0]
+        view = init.pts_w / torch.clamp(torch.linalg.vector_norm(init.pts_w, dim=-1, keepdim=True), min=1e-9)
+        # The points are frame-1 aligned but take frame 2's descriptors in
+        # frame-1 order, as the reference does (ROADMAP queue C).
+        m, ids = mapmod.add_points(m, init.pts_w, frame.feats.desc_pm, init.octave2, view, init.pt_ok)
+        no_right = torch.full((F,), -1.0, device=dev)
+        m = mapmod.add_observations(m, kf0, ids, init.uv1, no_right, init.octave2)
+        self.map_state = mapmod.add_observations(m, kf1, ids, init.uv2, no_right, init.octave2)
+        self.Tcw = init.T_cw2.cpu().numpy()
+        self.initialized = True
+        self.inliers_at_last_kf = int(torch.sum(init.pt_ok))
+        self.frames_since_kf = 0
+        self.stats["keyframes"] += 2
+        kf_fr = self.stats.setdefault("kf_frames", [])
+        kf_fr += [max(len(self.trajectory) - self._mono_ref_age, 0), len(self.trajectory)]
+        # Snapshot both keyframes: snapshot slot k is keyframe k.
+        self._loop_closing(self._mono_ref, 0)
+        self._loop_closing(frame, 1)
+
+    def _insert_mono_keyframe(self, frame: FrameData, res: TrackResult):
+        """A monocular keyframe: observations of the tracked inliers, new
+        points triangulated against the previous keyframe's snapshot, local
+        BA, the objects, and a snapshot whose 3D are the tracked map points."""
         cfg = self.cfg
-        pts_cam = backproject(frame.feats.xy, frame.depth, cfg.intr)
-        pts_ok = frame.depth > 0.0
+        dev = self.device
+        m, kf_id = mapmod.add_keyframe(self.map_state, torch.from_numpy(self.Tcw).to(dev))
+        N = m.pt_xyz.shape[0]
+        F = frame.feats.capacity
+        pt_ids = torch.where(res.match_inlier, torch.arange(N, dtype=torch.int32, device=dev), -1)
+        fidx = torch.clamp(res.match_pt, min=0).long()
+        m = mapmod.add_observations(m, kf_id, pt_ids, frame.feats.xy[fidx], torch.full((N,), -1.0, device=dev),
+                                    frame.feats.octave[fidx])
+        prev = int(m.num_kfs) - 2
+        # Every unmatched map row marks feature 0 unmatched too, as in the
+        # reference (ROADMAP queue C).
+        matched_feat = scatter_set_last(torch.zeros(F, dtype=torch.bool, device=dev), fidx, res.match_inlier)
+        ls = self.loop_state
+        self.map_state = triangulate_new_points(m, ls.kf_desc[prev], ls.kf_xy[prev], ls.kf_feat_ok[prev], prev,
+                                                kf_id, frame, matched_feat, cfg)
+        t0 = time.perf_counter()
+        budget = window_edge_budget(self.ba_window, cfg, self.emax)
+        self.map_state = local_ba_step(self.map_state, cfg, self.ba_window, budget)
+        self._sync()
+        self.stats["ba_ms"].append((time.perf_counter() - t0) * 1e3)
+        kf = int(self.map_state.num_kfs) - 1
+        self.Tcw = self.map_state.kf_Tcw[kf].cpu().numpy()
+        self.frames_since_kf = 0
+        self.inliers_at_last_kf = int(res.num_inliers)  # provisional, as in _insert_keyframe
+        self._kf_fresh = True
+        self.stats["keyframes"] += 1
+        self.stats.setdefault("kf_frames", []).append(len(self.trajectory))
+        if self.enable_objects and self._pending_detections is not None:
+            t0 = time.perf_counter()
+            self._process_objects_mono(self._pending_detections)
+            self.stats["obj_ms"].append((time.perf_counter() - t0) * 1e3)
+        pts_cam, pts_ok = feature_points_from_matches(self.map_state.pt_xyz, res.match_pt, res.match_inlier,
+                                                      torch.from_numpy(self.Tcw).to(dev), F)
+        self._loop_closing(frame, kf, pts_cam=pts_cam, pts_ok=pts_ok)
+
+    def _process_objects_mono(self, detections):
+        """The monocular object step of a keyframe: the ground plane of the
+        sparse map (re-estimated every keyframe, the best-supported fit
+        kept; objects wait for one), box-only ellipsoids from the ground
+        and the aspect priors, association, integration, the prior-aided
+        refinement, duplicate merging and culling.  The plane's draws come
+        from a CPU generator seeded 400 + keyframe id."""
+        if callable(detections):
+            detections = detections()
+        cfg, dev = self.cfg, self.device
+        m = self.map_state
+        kf_id = int(m.num_kfs) - 1
+        gp = estimate_ground_plane_points(
+            m.pt_xyz, m.pt_valid, torch.Generator().manual_seed(400 + kf_id), min_inlier_frac=0.04,
+            inlier_th=adaptive_inlier_th(m.pt_xyz, m.pt_valid),
+        )
+        ok, n_inl = (int(v) for v in torch.stack([gp.ok.to(torch.int64), gp.num_inliers.to(torch.int64)]).cpu())
+        if ok and n_inl > self._gp_inliers:
+            self.ground_plane = gp.plane.cpu().numpy()  # world frame already
+            self._gp_inliers = n_inl
+        if self.ground_plane is None:
+            return
+        Tcw = torch.from_numpy(self.Tcw).to(dev)
+        K = intrinsic_matrix(cfg.intr, dev)
+        pi_w = torch.from_numpy(self.ground_plane).to(dev)
+        pi_cam = plane_mod.transform(pi_w, Tcw)
+        bbox, label, prob, dvalid = (torch.as_tensor(np.asarray(detections[k]), dtype=dt).to(dev) for k, dt in (
+            ("bbox", torch.float32), ("label", torch.int32), ("prob", torch.float32), ("valid", torch.bool)))
+        priors = self.aspect_priors or default_priors(device=dev)
+        lbl = torch.clamp(label, 0, priors.d.shape[0] - 1).long()
+        e_cam = generate_init_guess(bbox, pi_cam, cfg.intr, priors.d[lbl], priors.e[lbl])
+        # A box whose ground ray leaves near the clip bound has no footprint.
+        fit_ok = dvalid & (e_cam[:, 2] > 0.3) & (e_cam[:, 2] < 30.0)
+        objs = advance_dynamic_objects(self.objects, kf_id)
+        assoc = associate_detections(objs, Tcw, K, bbox, label, dvalid)
+        objs = integrate_keyframe(objs, Tcw, bbox, label, prob, dvalid, e_cam, fit_ok, assoc, kf_id=kf_id)
+        objs = refine_objects_mono(objs, K, pi_w, priors.d, priors.e, img_wh=(cfg.width, cfg.height))
+        self.objects = cull_objects(merge_duplicates(objs), kf_id)
+        self._sync()
+
+    def _loop_closing(self, frame: FrameData, kf_id: int, pts_cam=None, pts_ok=None):
+        """Snapshot the keyframe (always: relocalization and monocular
+        triangulation read the store), then, from keyframe 12 on, loop
+        closing in three stages: the top-8 place query above the adaptive
+        floor (the worst score among the recent covisible keyframes, at
+        least 0.02); the consistency gate; and, for a consistent
+        candidate, Sim3 verification, which must find >= 40 inliers.  A
+        verified loop is corrected by the pose graph and a global BA; the
+        monocular sensor corrects scale too.  `pts_cam`/`pts_ok` replace
+        the depth back-projection (a monocular keyframe passes its tracked
+        map points)."""
+        cfg = self.cfg
+        if pts_cam is None:
+            pts_cam = backproject(frame.feats.xy, frame.depth, cfg.intr)
+            pts_ok = frame.depth > 0.0
         self.loop_state = snapshot_keyframe(
             self.loop_state, frame.feats.desc_pm, frame.feats.valid,
             pts_cam, pts_ok, frame.feats.xy, frame.feats.octave,
@@ -389,12 +575,11 @@ class SlamSystem:
         self.stats.setdefault("loop_scan", []).append(scan_row)
         if chosen < 0:
             return
-        # Stereo and RGB-D fix the scale (the monocular sensor waits for
-        # its slice).
+        fix_scale = self._sensor != "mono"
         gen = torch.Generator().manual_seed(77 + kf_id)
         det = verify_loop(
             self.loop_state, chosen, frame.feats.desc_pm, frame.feats.valid, pts_cam, pts_ok, gen,
-            intr=cfg.intr, xy=frame.feats.xy, octave=frame.feats.octave,
+            intr=cfg.intr, xy=frame.feats.xy, octave=frame.feats.octave, fix_scale=fix_scale,
             scale_factor=cfg.orb.pyramid.scale_factor, min_inliers=40,
         )
         found, n_inl = (int(v) for v in torch.stack([det.found.to(torch.int64), det.num_inliers.to(torch.int64)]).cpu())
@@ -405,7 +590,8 @@ class SlamSystem:
         self.stats.setdefault("loop_events", []).append(ev)
         print(f"[loop] kf={ev[0]} match={ev[1]} inliers={ev[2]}", file=sys.stderr)
         self._loop_gate.reset()
-        self.map_state = correct_loop(self.map_state, kf_id, det)
+        self.map_state, self.objects = correct_loop(self.map_state, self.objects, kf_id, det,
+                                                    fix_scale=fix_scale)
         self._dispatch_global_ba()
         self.Tcw = self.map_state.kf_Tcw[kf_id].cpu().numpy()
         self.velocity = np.eye(4, dtype=np.float32)
@@ -439,7 +625,7 @@ class SlamSystem:
             "track_fps": round(1000.0 / float(np.median(tm)), 2) if tm else None,
             "num_points": int(self.map_state.num_pts),
             "num_obs": int(self.map_state.num_obs),
-            "num_objects": 0,
+            "num_objects": int(torch.sum(self.objects.valid)),
             "loops_closed": self.loops_closed,
             "track_ms_median": float(np.median(tm)) if tm else None,
             "ba_ms_median": float(np.median(bm)) if bm else None,

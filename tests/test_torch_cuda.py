@@ -7,7 +7,9 @@ one; this file imports no JAX, so it also runs where JAX is not installed:
 Tolerances: K1 bitwise equal to its plain version (single image and whole
 pyramid), one launch per call; K2 exact, including rows at distance 0 and
 256, also at the recovery shapes; a short tracking run on the card keeps
-every camera centre within 1 cm of the same run on the CPU; relocalization
+every camera centre within 1 cm of the same run on the CPU (a monocular
+run: the same bootstrap and keyframes, centres within 0.005 gauge units,
+the same objects); relocalization
 on the card picks the CPU run's winner on the same hypothesis draws (inlier
 rows agree but for a few at the chi2 threshold), pose within 1e-3 m.
 """
@@ -88,7 +90,7 @@ def test_fast_nms_pyramid_kernel_matches_plain(gen, which):
 
 
 HAMMING_SHAPES = ((8192, 4000), (2048, 2048), (70, 130), (1, 1), (513, 127), (129, 4001), (4000, 3),
-                  (4000, 384), (1536, 4000))
+                  (4000, 384), (1536, 4000), (1000, 1000), (384, 1000), (8192, 1000))
 
 
 def test_hamming_kernel_matches_plain(gen):
@@ -152,6 +154,35 @@ def test_short_run_matches_cpu(gen):
                        np.stack(s.trajectory)[:, :3, 3].astype(np.float64)) for d, s in runs.items()}
     assert np.linalg.norm(p["cuda"] - p["cpu"], axis=1).max() < 0.01
     assert runs["cuda"].stats["kf_frames"] == runs["cpu"].stats["kf_frames"]
+
+
+def test_short_mono_run_matches_cpu(gen):
+    """Ten frames of an object scene through `track_mono` with the
+    renderer's detections, on the card and on the CPU (the RANSAC draws come
+    from CPU generators on both): the same bootstrap, keyframes and object
+    slots, centres within 0.005 gauge units (the unit is the bootstrap's
+    median depth, ~2 m), and K2 at (500, 500) for the bootstrap."""
+    from qsp_slam_tpu_torch.data.render import gt_detections, make_scene, render_scene
+
+    cfg = TrackingConfig(orb=OrbConfig(num_features=500))
+    scene = make_scene(num_objects=3, seed=2, device="cpu")
+    Tcw_gt = orbit_trajectory(10, step=0.025, pitch=0.4)
+    frames = [(render_scene(scene, Tcw_gt[i], cfg.intr)[0].numpy(),
+               {k: v.numpy() for k, v in gt_detections(scene, Tcw_gt[i], cfg.intr).items()}) for i in range(10)]
+    runs = {}
+    hamming_packed.shapes.clear()
+    for dev in ("cuda", "cpu"):
+        s = SlamSystem(cfg, kmax=16, nmax=2048, emax=16384, ba_window=6, enable_objects=True, device=dev)
+        for g, d in frames:
+            s.track_mono(g, d)
+        runs[dev] = s
+    assert hamming_packed.shapes[(500, 500)] >= 1
+    p = {d: -np.einsum("kji,kj->ki", np.stack(s.trajectory)[:, :3, :3].astype(np.float64),
+                       np.stack(s.trajectory)[:, :3, 3].astype(np.float64)) for d, s in runs.items()}
+    assert runs["cuda"].initialized and runs["cuda"].stats["kf_frames"] == runs["cpu"].stats["kf_frames"]
+    assert np.linalg.norm(p["cuda"] - p["cpu"], axis=1).max() < 0.005
+    assert torch.equal(runs["cuda"].objects.valid.cpu(), runs["cpu"].objects.valid)
+    assert torch.equal(runs["cuda"].objects.label.cpu(), runs["cpu"].objects.label)
 
 
 def test_relocalize_matches_cpu(gen):

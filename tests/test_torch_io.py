@@ -128,10 +128,19 @@ class TestFiles:
                                       np.loadtxt(tmp_path / "j" / "MapPoints.txt"))
         np.testing.assert_allclose(np.loadtxt(tmp_path / "t" / "Cameras.txt"),
                                    np.loadtxt(tmp_path / "j" / "Cameras.txt"), atol=1e-6)
-        for call in (lambda: tio.save_map(str(tmp_path / "x.npz"), tm, objects=object()),
-                     lambda: tio.export_map_txt(str(tmp_path / "x"), tm, objects=object())):
-            with pytest.raises(NotImplementedError, match="slice 6"):
-                call()
+        # With an object table (empty here; tests/test_torch_objects.py
+        # fills one): the reference's object keys and an empty object list.
+        from qsp_slam_tpu.slam.objects import empty_objects as jempty
+        from qsp_slam_tpu_torch.slam.objects import empty_objects as tempty
+
+        tio.save_map(str(tmp_path / "to.npz"), tm, objects=tempty(4, device="cpu"))
+        jio.save_map(str(tmp_path / "jo.npz"), m, objects=jempty(4))
+        got, ref = tio.load_map(str(tmp_path / "to.npz")), jio.load_map(str(tmp_path / "jo.npz"))
+        assert got.keys() == ref.keys()
+        for k in ref:
+            np.testing.assert_array_equal(got[k], ref[k])
+        tio.export_map_txt(str(tmp_path / "to"), tm, objects=tempty(4, device="cpu"))
+        assert (tmp_path / "to" / "MapObjects.txt").read_text() == ""
 
     def test_detection_cache(self, tmp_path, rng):
         det = {"bbox": rng.uniform(0, 600, (3, 4)).astype(np.float32), "label": np.array([0, 2, 1]),
@@ -213,9 +222,18 @@ class TestMakeTum:
             np.testing.assert_array_equal(got.normals.numpy(), np.asarray(ref.normals))
 
     def test_objects_wait_for_slice_6(self, tmp_path):
-        for extra in (["--objects", "2"], ["--detections"]):
-            with pytest.raises(NotImplementedError, match="slice 6"):
-                tmake.main([str(tmp_path), "--frames", "1", "--cpu", *extra])
+        """Fabricated objects and detections come with the monocular object
+        path (tests/test_torch_objects.py holds them to the reference);
+        table slabs and RGB-D detections still wait for slice 6."""
+        tmake.main([str(tmp_path), "--frames", "1", "--cpu", "--objects", "2", "--detections"])
+        assert (tmp_path / "detections" / "0.npz").exists()
+        from qsp_slam_tpu_torch import run_tum
+        from qsp_slam_tpu_torch.data.render import make_scene
+
+        with pytest.raises(NotImplementedError, match="slice 6"):
+            make_scene(num_tables=1, device="cpu")
+        with pytest.raises(NotImplementedError, match="slice 6"):
+            run_tum.main([str(tmp_path), "--detections", str(tmp_path / "detections"), "--cpu"])
 
 
 class TestRunTum:
@@ -324,9 +342,8 @@ class TestCheckpoint:
         from qsp_slam_tpu_torch.slam.checkpoint import load_checkpoint
 
         port = SlamSystem(TrackingConfig(), device="cpu", kmax=2, nmax=64, emax=128)
-        for extra, slice_ in ((dict(sensor=np.asarray("mono")), "slice 5"),
-                              (dict(**{"monoref.depth": np.zeros(3)}), "slice 5"),
-                              (dict(**{"obj.valid": np.array([False, True])}), "slice 6")):
+        for extra, slice_ in ((dict(**{"plane.valid": np.array([False, True])}), "slice 6"),
+                              (dict(**{"rel.kind": np.zeros(3)}), "slice 6")):
             p = str(tmp_path / "c.npz")
             np.savez(p, **extra)
             with pytest.raises(NotImplementedError, match=slice_):

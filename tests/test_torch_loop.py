@@ -33,6 +33,7 @@ from qsp_slam_tpu_torch.opt import pose_graph as tpg
 from qsp_slam_tpu_torch.opt import sim3_solver as tss
 from qsp_slam_tpu_torch.slam import loop_closing as tloop
 from qsp_slam_tpu_torch.slam import map as tmap
+from qsp_slam_tpu_torch.slam import objects as tobjects
 from qsp_slam_tpu_torch.slam.system import SlamSystem
 from qsp_slam_tpu_torch.slam.tracking import TrackingConfig, process_frame
 
@@ -397,7 +398,7 @@ def test_correct_loop_pulls_drifted_chain():
     m = convert.map_state_from_numpy({k: np.asarray(v) for k, v in jm._asdict().items()}, device="cpu")
     det = tloop.LoopDetection(found=torch.tensor(True), match_kf=torch.tensor(0, dtype=torch.int32),
                               T_cur_match=T(T_rel), num_inliers=torch.tensor(50), score=torch.tensor(0.9))
-    got = tloop.correct_loop(m, K - 1, det)
+    got, _ = tloop.correct_loop(m, tobjects.empty_objects(8, device="cpu"), K - 1, det)
     np.testing.assert_allclose(got.kf_Tcw.numpy(), np.asarray(ref.kf_Tcw), atol=1e-4)
     np.testing.assert_allclose(got.pt_xyz.numpy(), np.asarray(ref.pt_xyz), atol=1e-4)
     err_before = np.linalg.norm(m.kf_Tcw[K - 1].numpy()[:3, 3] - gt[K - 1][:3, 3])
@@ -424,7 +425,8 @@ def test_loop_closing_runs_in_the_system(monkeypatch):
                                    torch.tensor(55), torch.tensor(0.0))
 
     monkeypatch.setattr(system_mod, "verify_loop", fake_verify)
-    monkeypatch.setattr(system_mod, "correct_loop", lambda m, kf, det, **kw: calls.append(("corr", kf)) or m)
+    monkeypatch.setattr(system_mod, "correct_loop",
+                        lambda m, objs, kf, det, **kw: calls.append(("corr", kf)) or (m, objs))
     monkeypatch.setattr(system_mod, "global_ba_step", lambda m, cfg, iters: calls.append("gba") or m)
     rng = np.random.default_rng(0)
     place_a, place_b = (process_frame(torch.from_numpy(rng.integers(0, 255, (480, 640)).astype(np.float32)),
