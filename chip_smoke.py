@@ -77,16 +77,39 @@ Phases (any failure exits non-zero and prints no result line):
      draw the same): the same bootstrap frame and keyframes, camera centres
      within 0.005 gauge units (the unit is the median depth of the
      bootstrap, about 2 m here, so this is phase 5's 1 cm), the same
-     objects.
+     objects.  Both runs dump the bootstrap's pose and points, the
+     keyframe poses after each local BA and the objects after each
+     refinement; the per-step card-vs-CPU gaps are printed, and the
+     bootstrap's pose and points and the keyframes are held to
+     MONO_STEP_GAPS;
+ 13. the RGB-D object path: `run_tum.main --detections` on phase 11's
+     sequence at 4000 features: ATE < 0.05 m, >= 2 objects of the scene's
+     labels, one within 0.4 m of the truth with its label, recall (IoU >=
+     0.1, Hungarian, `eval/objects.py`) >= TUM_OBJ_RECALL, >= 2 Manhattan
+     planes with two votes; K1 once per frame; ms per frame (median per
+     tracked frame, end to end), BA and object ms per keyframe, K2
+     launches per shape, precision, recall, mean IoU;
+ 14. the stereo object path: `run_kitti.main --lidar-detections
+     --global-ba` on phase 9's drive at its defaults: ATE < 0.6 m, RPE <
+     0.25 m, >= 4 keyframes, >= 1 object, >= 1 local joint BA and a
+     global BA that went joint (CUDA events around every `joint_ba_step`);
+     ms per frame, object and LiDAR-provider ms per keyframe, K1 once per
+     frame, K2 launches per shape;
+ 15. the object paths on the card against the CPU: 10 RGB-D frames of
+     phase 13's scene at 500 features with the renderer's detections, and
+     10 frames of phase 9's small drive with LiDAR detections computed
+     once on the CPU: the same keyframes, object slots and labels (and
+     Manhattan plane slots), object centres within 1 cm.
   K2 at the monocular shapes: exactly equal to plain with planted rows at
   (1000, 1000) bootstrap, (384, 1000) keyframe triangulation and
   (8192, 1000) tracking, each timed.
-Paths 4, 7, 8, 9, 10 and 11 each zero the launch counters just before and
-read them just after.  With `--profile DIR`: torch.profiler tables in DIR
+Paths 4, 7, 8, 9, 10, 11, 13 and 14 each zero the launch counters just
+before and read them just after.  With `--profile DIR`: torch.profiler tables in DIR
 of main-path frames 12-19, of KITTI-drive frames 12-19 (phase 9's
 configuration) and of monocular frames 12-19 (phase 11's), the device's busy share of each window, each kernel's
 device time per launch there, and each kernel's device time per call alone
-at the phase-6, recovery, stereo and monocular shapes.  Then a `{"kernels": [...]}` line, the
+at the phase-6, recovery, stereo and monocular shapes, and `profile_objects.txt`: the object step of one
+warm RGB-D keyframe and one local joint BA call.  Then a `{"kernels": [...]}` line, the
 card line again, and as the last line `{"ok": true, "device": {...}}`.
 """
 
@@ -106,13 +129,22 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from qsp_slam_tpu_torch import run_kitti, run_mono, run_tum  # noqa: E402
-from qsp_slam_tpu_torch.core import lie  # noqa: E402
+from qsp_slam_tpu_torch.core import lie, quadric  # noqa: E402
 from qsp_slam_tpu_torch.data import make_kitti, make_tum, native_loader  # noqa: E402
+from qsp_slam_tpu_torch.data.make_kitti import drive_scene  # noqa: E402
 from qsp_slam_tpu_torch.data.kitti import KittiSequence  # noqa: E402
 from qsp_slam_tpu_torch.data.io import load_detection_cache, load_trajectory_tum  # noqa: E402
-from qsp_slam_tpu_torch.data.render import make_room, orbit_trajectory, render_frame  # noqa: E402
+from qsp_slam_tpu_torch.data.render import (  # noqa: E402
+    gt_detections,
+    make_room,
+    make_scene,
+    orbit_trajectory,
+    render_frame,
+    render_scene,
+)
 from qsp_slam_tpu_torch.data.tum import TumSequence  # noqa: E402
-from qsp_slam_tpu_torch.eval.ate import ate_rmse, positions_from_Tcw  # noqa: E402
+from qsp_slam_tpu_torch.eval.ate import ate_rmse, positions_from_Tcw, rpe  # noqa: E402
+from qsp_slam_tpu_torch.eval.objects import evaluate_objects  # noqa: E402
 from qsp_slam_tpu_torch.frontend.matcher import pack_pm  # noqa: E402
 from qsp_slam_tpu_torch.frontend.orb import OrbConfig  # noqa: E402
 from qsp_slam_tpu_torch.frontend.pyramid import PyramidConfig, build_pyramid  # noqa: E402
@@ -139,7 +171,18 @@ KITTI_FRAMES, KITTI_H, KITTI_W, KITTI_F = 60, 376, 1241, 2000  # phase 9 at run_
 STEREO_K2 = ((KITTI_F, KITTI_F), (8192, KITTI_F), (KITTI_F, SNAP), (1000, SNAP))
 MONO_FRAMES, MONO_F, MONO_SMALL = 60, 1000, 12  # phase 11 at run_mono's defaults; phase 12
 MONO_K2 = ((MONO_F, MONO_F), (SNAP, MONO_F), (8192, MONO_F))
+KITTI_LIDAR_OBJECTS = 0  # phase 14's LiDAR run: the reference's object count on that drive
+TUM_OBJ_F = 4000  # phase 13 at the reference's TUM budget (phase 7's)
+TUM_OBJ_RECALL = 0.66  # phase 13 object recall gate (`evaluate_objects`, IoU >= 0.1); the JAX run: 1.0
 MONO_GAP = 0.005  # phase 12 centre gate, mono gauge units
+# Phase 12 per-step gates (gauge units), from the steps' card-vs-CPU gaps
+# on the H100: the bootstrap pose 5.2e-6; its points 1.2e-3 (midpoint
+# triangulation at 1-2 degrees of parallax multiplies a pose gap by
+# depth^2 / baseline on the far points); the keyframes after each local BA
+# 4.1e-5.  The objects after each refinement are held to their slots only:
+# the monocular LM's turn about the vertical is weakly determined and
+# carries 2e-4 into 1e-2.
+MONO_STEP_GAPS = {"bootstrap T_cw2": 1e-4, "bootstrap pts_w": 1e-2, "keyframes after local BA": 1e-3}
 KERNEL_NAMES = ("fast_score_nms_pyramid_kernel", "hamming_mma_kernel")  # as the profiler names them
 
 
@@ -425,7 +468,7 @@ def kitti_path(tmp: str, keep: int) -> dict:
 
     # The card against the CPU on a small drive.
     small_dir = os.path.join(tmp, "kitti_small")
-    make_kitti.main([small_dir, "--frames", "10", "--seed", "2"])
+    make_kitti.main([small_dir, "--frames", "10", "--seed", "2", "--poses-out", os.path.join(tmp, "kitti_small_poses.txt")])
     seq = KittiSequence(small_dir)
     cfg = stereo_cfg(seq, 500)
     pairs = list(seq.prefetch_pairs(range(10)))
@@ -533,14 +576,16 @@ def loop_path(tmp: str) -> dict:
             "kf_ate_m": kf_ate, "frozen_ate_m": frozen_ate, "verify_ms": ev.verify, "correct_ms": ev.correct}
 
 
-class MonoFrames:
-    """Host-clock ms of every `SlamSystem.track_mono` call (synchronised),
-    whether the system was initialized before it, and the system itself:
-    installed over the class, so `run_mono`'s own system is timed."""
+class FrameTimes:
+    """Host-clock ms of every call of a `SlamSystem` tracking method
+    (synchronised), whether the system was initialized before it, and the
+    system itself: installed over the class, so a command line's own
+    system is timed."""
 
-    def __init__(self):
+    def __init__(self, method: str = "track_mono"):
         self.ms, self.was_init, self.system = [], [], None
-        self._saved = SlamSystem.track_mono
+        self.method = method
+        self._saved = getattr(SlamSystem, method)
 
     def __enter__(self):
         saved = self._saved
@@ -554,11 +599,62 @@ class MonoFrames:
             self.ms.append((time.perf_counter() - t0) * 1e3)
             return out
 
-        SlamSystem.track_mono = timed
+        setattr(SlamSystem, self.method, timed)
         return self
 
     def __exit__(self, *exc):
-        SlamSystem.track_mono = self._saved
+        setattr(SlamSystem, self.method, self._saved)
+
+
+class StepDumps:
+    """The monocular path's intermediate results, in call order: the
+    bootstrap's second pose and points (`mono_initialize`), every keyframe
+    pose after each local BA (`local_ba_step`) and every object after each
+    refinement (`refine_objects_mono`).  Installed over the system
+    module's names, as `EventTimes` is."""
+
+    NAMES = ("mono_initialize", "local_ba_step", "refine_objects_mono")
+
+    def __init__(self):
+        self.steps = []
+        self._saved = {n: getattr(system_mod, n) for n in self.NAMES}
+
+    def __enter__(self):
+        boot, ba, refine = (self._saved[n] for n in self.NAMES)
+
+        def dump_boot(*a, **k):
+            out = boot(*a, **k)
+            if bool(out.ok):
+                ok = out.pt_ok.cpu().numpy()
+                self.steps.append(("bootstrap T_cw2", out.T_cw2.cpu().numpy()))
+                self.steps.append(("bootstrap pts_w", np.where(ok[:, None], out.pts_w.cpu().numpy(), 0.0)))
+            return out
+
+        def dump_ba(*a, **k):
+            m = ba(*a, **k)
+            self.steps.append((f"keyframes after local BA (kf {int(m.num_kfs) - 1})",
+                               m.kf_Tcw[: int(m.num_kfs)].cpu().numpy()))
+            return m
+
+        def dump_refine(*a, **k):
+            t = refine(*a, **k)
+            self.steps.append(("objects after refine_objects_mono",
+                               np.where(t.valid.cpu().numpy()[:, None], t.ellipsoid.cpu().numpy(), 0.0)))
+            return t
+
+        system_mod.mono_initialize, system_mod.local_ba_step, system_mod.refine_objects_mono = (
+            dump_boot, dump_ba, dump_refine)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._saved.items():
+            setattr(system_mod, n, fn)
+
+
+def step_gaps(a: list, b: list) -> list:
+    """(step, max abs gap) for the steps the two runs share, in order."""
+    return [(na, float(np.abs(xa - xb).max(initial=0.0)) if xa.shape == xb.shape else float("inf"))
+            for (na, xa), (nb, xb) in zip(a, b) if na == nb]
 
 
 def mono_path(tmp: str, keep: int) -> dict:
@@ -573,7 +669,7 @@ def mono_path(tmp: str, keep: int) -> dict:
     det_dir = os.path.join(seq_dir, "detections")
     torch.cuda.synchronize()
     zero_counts()
-    with MonoFrames() as mf:
+    with FrameTimes("track_mono") as mf:
         t0 = time.perf_counter()
         out = run_mono.main([seq_dir, "--detections", det_dir])
         torch.cuda.synchronize()
@@ -609,11 +705,13 @@ def mono_path(tmp: str, keep: int) -> dict:
     dets = [load_detection_cache(os.path.join(det_dir, f"{i}.npz")) for i in range(max(MONO_SMALL, keep))]
     res["kept"] = list(zip(grays, dets))[:keep]
     small = TrackingConfig(orb=OrbConfig(num_features=500))
-    runs = {}
+    runs, dumps = {}, {}
     for dev in ("cuda", "cpu"):
         runs[dev] = SlamSystem(small, enable_objects=True, device=dev)
-        for g, d in zip(grays[:MONO_SMALL], dets[:MONO_SMALL]):
-            runs[dev].track_mono(g, d)
+        with StepDumps() as sd:
+            for g, d in zip(grays[:MONO_SMALL], dets[:MONO_SMALL]):
+                runs[dev].track_mono(g, d)
+        dumps[dev] = sd.steps
     p = {dev: positions_from_Tcw(np.stack(r.trajectory).astype(np.float64)) for dev, r in runs.items()}
     gap = float(np.linalg.norm(p["cuda"] - p["cpu"], axis=1).max())
     objs = {dev: (r.objects.valid.cpu().numpy(), r.objects.label.cpu().numpy()) for dev, r in runs.items()}
@@ -624,11 +722,287 @@ def mono_path(tmp: str, keep: int) -> dict:
         f"keyframes {runs['cuda'].stats['kf_frames']} vs {runs['cpu'].stats['kf_frames']}, objects "
         f"{int(objs['cuda'][0].sum())} vs {int(objs['cpu'][0].sum())} (same slots and labels: {same_objs}), "
         f"max ellipsoid gap {ell_gap:.2e}")
+    gaps = step_gaps(dumps["cuda"], dumps["cpu"])
+    first = next((name for name, g in gaps if g > 1e-4), None)
+    log(f"  per-step card-vs-CPU gaps: {[(name, float(f'{g:.2e}')) for name, g in gaps]}; first step past 1e-4: "
+        f"{first}")
     if (gap > MONO_GAP or runs["cuda"].stats["kf_frames"] != runs["cpu"].stats["kf_frames"]
-            or not runs["cuda"].initialized or not same_objs):
+            or not runs["cuda"].initialized or not same_objs or len(gaps) != len(dumps["cpu"])
+            or any(g > bound for name, g in gaps for step, bound in MONO_STEP_GAPS.items()
+                   if name.startswith(step))):
         raise AssertionError("mono card and CPU runs disagree")
-    res.update(cpu_gap=gap, ell_gap=ell_gap)
+    res.update(cpu_gap=gap, ell_gap=ell_gap, step_gaps=gaps)
     return res
+
+
+class JointTimes:
+    """CUDA-event ms and window of every `joint_ba_step` the facade calls
+    (window `ba_window`: the local joint BA; window kmax: the global one),
+    installed over the system module's name."""
+
+    def __init__(self):
+        self.calls = []
+        self._saved = system_mod.joint_ba_step
+
+    def __enter__(self):
+        saved = self._saved
+
+        def timed(m, objects, cfg, window=8):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = saved(m, objects, cfg, window)
+            e1.record()
+            torch.cuda.synchronize()
+            self.calls.append((window, e0.elapsed_time(e1)))
+            return out
+
+        system_mod.joint_ba_step = timed
+        return self
+
+    def __exit__(self, *exc):
+        system_mod.joint_ba_step = self._saved
+
+
+def scene_truth(step: float, pitch: float):
+    """Phase 11's scene (`make_tum --objects 3 --seed 2`) in the frame of its
+    first camera, the SLAM world: ellipsoids and labels."""
+    scene = make_scene(num_objects=3, seed=2, device="cpu")
+    first = torch.from_numpy(orbit_trajectory(1, step=step, pitch=pitch)[0])
+    return quadric.transform_ellipsoid(scene.ellipsoids, first).numpy(), scene.labels.numpy()
+
+
+def rgbd_objects_path(tmp: str) -> dict:
+    """Phase 13: `run_tum --detections` on phase 11's sequence at 4000
+    features, the objects held to the scene's ground truth."""
+    seq_dir = os.path.join(tmp, "mono")
+    conf = os.path.join(tmp, "tum4000.yaml")
+    Path(conf).write_text(f"ORBextractor.nFeatures: {TUM_OBJ_F}\n")
+    torch.cuda.synchronize()
+    zero_counts()
+    with FrameTimes("track_rgbd") as ft:
+        t0 = time.perf_counter()
+        out = run_tum.main([seq_dir, "--detections", os.path.join(seq_dir, "detections"), "--config", conf,
+                            "--save-dir", os.path.join(tmp, "tum_obj_out")])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    sysm = ft.system
+    valid = sysm.objects.valid.cpu().numpy()
+    est, labels = sysm.objects.ellipsoid.cpu().numpy()[valid], sysm.objects.label.cpu().numpy()[valid]
+    gt, gt_labels = scene_truth(0.025, 0.4)
+    ev = evaluate_objects(est, labels, gt, gt_labels)
+    near = [np.linalg.norm(gt[:, :3] - e[:3], axis=1) for e in est]
+    matched = sum(d.min() < 0.4 and gt_labels[d.argmin()] == lab for d, lab in zip(near, labels))
+    votes = sysm.plane_set.votes.cpu().numpy()
+    planes2 = int((sysm.plane_set.valid.cpu().numpy() & (votes >= 2)).sum())
+    tracked = [ms for ms, init in zip(ft.ms, ft.was_init) if init]
+    res = {"ms_per_frame_end_to_end": wall_ms / MONO_FRAMES, "ms_per_frame_median": float(np.median(tracked)),
+           "kf_frames": sysm.stats["kf_frames"], "ba_ms": sysm.stats["ba_ms"], "obj_ms": sysm.stats["obj_ms"],
+           "labels": sorted(int(x) for x in labels), "matched": int(matched), "planes_2_votes": planes2,
+           "precision": ev.precision, "recall": ev.recall, "mean_iou": ev.mean_iou, "launches": counts, "out": out}
+    log(f"phase 13 RGB-D objects, run_tum --detections: {MONO_FRAMES} frames at 640x480, {TUM_OBJ_F} features: "
+        f"{res['ms_per_frame_end_to_end']:.3f} ms/frame end to end, median {res['ms_per_frame_median']:.3f} ms per "
+        f"tracked frame (host clock around track_rgbd), keyframes at {sysm.stats['kf_frames']}, ATE "
+        f"{out['ate_rmse_m']:.5f} m, RPE {out['rpe_trans_rmse']:.5f} m, objects {out['num_objects']} labels "
+        f"{res['labels']}, {matched} within 0.4 m of the truth with its label, Manhattan planes with >= 2 votes "
+        f"{planes2} (votes {votes.tolist()}), precision {ev.precision:.3f} recall {ev.recall:.3f} mean IoU "
+        f"{ev.mean_iou:.3f} centre error {ev.mean_center_err:.4f} m; BA ms per keyframe "
+        f"{[round(x, 1) for x in sysm.stats['ba_ms']]}, object ms per keyframe "
+        f"{[round(x, 1) for x in sysm.stats['obj_ms']]}; launches {counts}")
+    if not (out["ate_rmse_m"] < 0.05 and out["num_objects"] >= 2 and set(res["labels"]) <= {0, 1, 2}
+            and matched >= 1 and planes2 >= 2 and ev.recall >= TUM_OBJ_RECALL):
+        raise AssertionError(f"RGB-D object path failed: {res}")
+    if counts["fast_nms"] != MONO_FRAMES or counts["hamming"] < 1:
+        raise AssertionError(f"RGB-D object path launches: {counts}")
+    return res
+
+
+def drive_detections(seq: KittiSequence, num_frames: int) -> list:
+    """Detections of a perfect 3D detector on a `make_kitti` drive of
+    `num_frames` frames at the fabricator's defaults (six cars, seed 2):
+    each visible car's box and label, and its ellipsoid in the camera frame
+    with `fit_ok` (the fields a 3D detector fills, read by the object
+    step's measured-ellipsoid branch).  numpy dicts, one per frame."""
+    scene = drive_scene(num_frames=num_frames, device="cpu")[0]
+    H, W = seq.load_gray_pair(0)[0].shape
+    intr = stereo_cfg(seq, 1).intr
+    out = []
+    for T_wc in seq.poses[:num_frames]:
+        T_cw = torch.from_numpy(np.linalg.inv(T_wc).astype(np.float32))
+        det = gt_detections(scene, T_cw, intr, width=W, height=H)
+        det["ellipsoid_cam"] = quadric.transform_ellipsoid(scene.ellipsoids, T_cw)
+        det["fit_ok"] = det["valid"]
+        out.append({k: v.numpy() for k, v in det.items()})
+    return out
+
+
+def stereo_objects_path(tmp: str) -> dict:
+    """Phase 14: `run_kitti --lidar-detections --global-ba` on phase 9's
+    drive at its defaults, then the same drive through `track_stereo`
+    with a perfect 3D detector's detections and `run_global_ba`; every
+    joint BA timed by CUDA events."""
+    seq_dir, poses = os.path.join(tmp, "kitti"), os.path.join(tmp, "kitti_poses.txt")
+    torch.cuda.synchronize()
+    zero_counts()
+    with FrameTimes("track_stereo") as ft, JointTimes() as jt:
+        t0 = time.perf_counter()
+        out = run_kitti.main([seq_dir, "--poses", poses, "--lidar-detections", "--global-ba", "--save-dir",
+                              os.path.join(tmp, "kitti_obj_out")])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    sysm = ft.system
+    local = [ms for w, ms in jt.calls if w == sysm.ba_window]
+    glob = [ms for w, ms in jt.calls if w == sysm.kmax]
+    tracked = [ms for ms, init in zip(ft.ms, ft.was_init) if init]
+    res = {"ms_per_frame_end_to_end": wall_ms / KITTI_FRAMES, "ms_per_frame_median": float(np.median(tracked)),
+           "kf_frames": sysm.stats["kf_frames"], "obj_ms": sysm.stats["obj_ms"], "det_ms": sysm.stats.get("det_ms", []),
+           "joint_local_ms": local, "joint_global_ms": glob, "launches": counts, "out": out,
+           "objects_with_measurements": int(((sysm.objects.pm_kf >= 0).sum(1) > 0)[sysm.objects.valid].sum())}
+    log(f"phase 14 stereo objects, run_kitti --lidar-detections --global-ba: {KITTI_FRAMES} frames at "
+        f"{KITTI_W}x{KITTI_H}, {KITTI_F} features: {res['ms_per_frame_end_to_end']:.3f} ms/frame end to end, median "
+        f"{res['ms_per_frame_median']:.3f} ms per tracked frame, keyframes at {sysm.stats['kf_frames']}, ATE "
+        f"{out['ate_rmse_m']:.5f} m, RPE {out['rpe_trans_rmse']:.5f} m, objects {out['num_objects']} "
+        f"({res['objects_with_measurements']} with pose measurements); object ms per keyframe "
+        f"{[round(x, 1) for x in res['obj_ms']]}, LiDAR provider ms {[round(x, 1) for x in res['det_ms']]}, local "
+        f"joint BA ms by events {[round(x, 1) for x in local]}, global joint BA ms {[round(x, 1) for x in glob]}; "
+        f"launches {counts}")
+    # The reference makes no object here (`tools/objects_reference.py`: the
+    # cars' boxes hold at most a few stereo keypoints), so neither does the
+    # port, and no BA goes joint.
+    if not (out["ate_rmse_m"] < 0.6 and out["rpe_trans_rmse"] < 0.25 and out["keyframes"] >= 4
+            and out["num_objects"] == KITTI_LIDAR_OBJECTS and not jt.calls):
+        raise AssertionError(f"stereo object path failed: {res}")
+    if counts["fast_nms"] != KITTI_FRAMES or counts["hamming"] < 1:
+        raise AssertionError(f"stereo object path launches: {counts}")
+
+    seq = KittiSequence(seq_dir, poses)
+    cfg = stereo_cfg(seq, KITTI_F)
+    dets = drive_detections(seq, KITTI_FRAMES)
+    pairs = list(seq.prefetch_pairs(range(KITTI_FRAMES)))
+    sysm = SlamSystem(cfg, kmax=128, nmax=16384, emax=131072)
+    torch.cuda.synchronize()
+    zero_counts()
+    with FrameTimes("track_stereo") as ft, JointTimes() as jt:
+        t0 = time.perf_counter()
+        for (gl, gr), det in zip(pairs, dets):
+            sysm.track_stereo(gl, gr, det)
+        sysm.run_global_ba()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    gt = np.stack([np.linalg.inv(T) for T in seq.poses[:KITTI_FRAMES]])
+    est = np.stack(sysm.trajectory)
+    n_kf = int(sysm.map_state.num_kfs)
+    kf_ate = ate_rmse(sysm.map_state.kf_Tcw[:n_kf].cpu().numpy(), gt[np.asarray(sysm.stats["kf_frames"])])
+    local = [ms for w, ms in jt.calls if w == sysm.ba_window]
+    glob = [ms for w, ms in jt.calls if w == sysm.kmax]
+    valid = sysm.objects.valid.cpu().numpy()
+    res["system"] = sysm
+    res["gt3d"] = g3 = {
+        "ms_per_frame_end_to_end": wall_ms / KITTI_FRAMES, "ms_per_frame_median": float(np.median(ft.ms[1:])),
+        "kf_frames": sysm.stats["kf_frames"], "obj_ms": sysm.stats["obj_ms"], "joint_local_ms": local,
+        "joint_global_ms": glob, "ate_rmse_m": ate_rmse(est, gt), **rpe(est, gt), "kf_ate_rmse_m": kf_ate,
+        "objects": int(valid.sum()), "labels": sorted(int(x) for x in sysm.objects.label.cpu().numpy()[valid]),
+        "pose_measurements": int((sysm.objects.pm_kf >= 0).sum()), "launches": counts}
+    log(f"phase 14 stereo objects from a perfect 3D detector through track_stereo + run_global_ba: "
+        f"{g3['ms_per_frame_end_to_end']:.3f} ms/frame end to end (median {g3['ms_per_frame_median']:.3f}), keyframes "
+        f"at {g3['kf_frames']}, ATE {g3['ate_rmse_m']:.5f} m, RPE {g3['rpe_trans_rmse']:.5f} m, keyframe ATE after "
+        f"the global BA {kf_ate:.5f} m, objects {g3['objects']} labels {g3['labels']}, pose measurements "
+        f"{g3['pose_measurements']}; object ms per keyframe {[round(x, 1) for x in g3['obj_ms']]}, local joint BA ms "
+        f"by events {[round(x, 1) for x in local]}, global joint BA ms {[round(x, 1) for x in glob]}; launches {counts}")
+    if not (g3["ate_rmse_m"] < 0.6 and g3["rpe_trans_rmse"] < 0.25 and len(g3["kf_frames"]) >= 4
+            and g3["objects"] >= 1 and len(local) >= 1 and len(glob) == 1 and jt.calls[-1][0] == sysm.kmax):
+        raise AssertionError(f"stereo joint path failed: {g3}")
+    if counts["fast_nms"] != KITTI_FRAMES:
+        raise AssertionError(f"stereo joint path launches: {counts}")
+    return res
+
+
+def objects_card_vs_cpu(tmp: str) -> dict:
+    """Phase 15: the object paths on the card against the CPU: 10 RGB-D
+    frames of phase 13's scene at 500 features with the renderer's
+    detections, and 10 frames of phase 9's small drive with a perfect 3D
+    detector's (the local and global joint BA run)."""
+    scene = make_scene(num_objects=3, seed=2, device="cpu")
+    traj = orbit_trajectory(10, step=0.025, pitch=0.4)
+    cfg = TrackingConfig(orb=OrbConfig(num_features=500))
+    frames = []
+    for Tcw in traj:
+        g, d, _ = render_scene(scene, Tcw, cfg.intr)
+        frames.append((g.numpy(), d.numpy(), {k: v.numpy() for k, v in gt_detections(scene, Tcw, cfg.intr).items()}))
+    seq = KittiSequence(os.path.join(tmp, "kitti_small"), os.path.join(tmp, "kitti_small_poses.txt"))
+    scfg = stereo_cfg(seq, 500)
+    pairs = list(seq.prefetch_pairs(range(10)))
+    dets3d = drive_detections(seq, 10)
+    res = {}
+    for name in ("rgbd", "stereo"):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            if name == "rgbd":
+                runs[dev] = SlamSystem(cfg, device=dev)
+                for g, d, det in frames:
+                    runs[dev].track_rgbd(g, d, det)
+            else:
+                runs[dev] = SlamSystem(scfg, kmax=16, nmax=4096, emax=32768, device=dev)
+                for (gl, gr), det in zip(pairs, dets3d):
+                    runs[dev].track_stereo(gl, gr, det)
+                runs[dev].run_global_ba()
+        o = {dev: (r.objects.valid.cpu().numpy(), r.objects.label.cpu().numpy(), r.objects.ellipsoid.cpu().numpy())
+             for dev, r in runs.items()}
+        same = bool((o["cuda"][0] == o["cpu"][0]).all() and (o["cuda"][1] == o["cpu"][1]).all())
+        live = o["cpu"][0]
+        gap = float(np.linalg.norm(o["cuda"][2][live, :3] - o["cpu"][2][live, :3], axis=1).max(initial=0.0))
+        p = {dev: positions_from_Tcw(np.stack(r.trajectory).astype(np.float64)) for dev, r in runs.items()}
+        cam_gap = float(np.linalg.norm(p["cuda"] - p["cpu"], axis=1).max())
+        planes_same = bool(torch.equal(runs["cuda"].plane_set.valid.cpu(), runs["cpu"].plane_set.valid))
+        kfs = (runs["cuda"].stats["kf_frames"], runs["cpu"].stats["kf_frames"])
+        res[name] = {"centre_gap_m": gap, "camera_gap_m": cam_gap, "objects": int(live.sum()), "same_slots": same,
+                     "same_planes": planes_same, "kf_frames": kfs}
+        log(f"phase 15 {name} objects card vs CPU, 10 frames at 500 features: keyframes {kfs[0]} vs {kfs[1]}, "
+            f"objects {int(o['cuda'][0].sum())} vs {int(live.sum())} (same slots and labels: {same}), max object "
+            f"centre gap {gap:.2e} m, max camera centre gap {cam_gap:.2e} m, same Manhattan plane slots: {planes_same}")
+        if (kfs[0] != kfs[1] or not same or live.sum() < 1 or gap > 0.01
+                or (name == "rgbd" and not planes_same)):
+            raise AssertionError(f"{name} object card and CPU runs disagree: {res[name]}")
+    return res
+
+
+def profile_objects(tmp: str, stereo_sys, path: Path) -> None:
+    """torch.profiler tables of the object step of one warm RGB-D keyframe
+    (phase 13's sequence, 4000 features) and of one local joint BA call on
+    phase 14's final map (the perfect-detector run), written to `path`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    seq = TumSequence(os.path.join(tmp, "mono"))
+    det_dir = os.path.join(tmp, "mono", "detections")
+    cfg = TrackingConfig(orb=OrbConfig(num_features=TUM_OBJ_F))
+    sysm = SlamSystem(cfg, device="cuda")
+    for i in range(13):
+        gray, depth, _, _ = seq.load(i)
+        det = load_detection_cache(os.path.join(det_dir, f"{i}.npz"))
+        sysm.track_rgbd(gray, depth, det)
+    d = torch.from_numpy(depth).cuda()
+    frame = process_frame(torch.from_numpy(gray).cuda(), d, cfg)
+    tables = []
+    for what, fn in (("object step of a warm RGB-D keyframe (13 frames in)",
+                      lambda: sysm._process_objects(det, d, frame)),
+                     (f"one local joint BA (window {stereo_sys.ba_window}) on phase 14's map",
+                      lambda: system_mod.joint_ba_step(stereo_sys.map_state, stereo_sys.objects, stereo_sys.cfg,
+                                                       stereo_sys.ba_window))):
+        fn()  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        busy_us = sum(self_dev_us(e) for e in events if e.device_type == DeviceType.CUDA)
+        log(f"profile of the {what}: {ms:.1f} ms under the profiler, device busy {busy_us / 1e3:.1f} ms")
+        tables.append(f"== {what} ==\n" + events.table(sort_by="cuda_time_total", row_limit=40))
+    path.write_text("\n\n".join(tables))
 
 
 def mono_kernels(gen) -> dict:
@@ -887,6 +1261,11 @@ def main() -> int:
         kit = kitti_path(tmp, keep=20 if prof_dir else 0)
         loop = loop_path(tmp)
         mono = mono_path(tmp, keep=20 if prof_dir else 0)
+        rgbd_obj = rgbd_objects_path(tmp)
+        stereo_obj = stereo_objects_path(tmp)
+        objects_card_vs_cpu(tmp)
+        if prof_dir:
+            profile_objects(tmp, stereo_obj.pop("system"), prof_dir / "profile_objects.txt")
     st = stereo_kernels(kit.pop("pair"), gen)
     mk = mono_kernels(gen)
     kernels[0]["launches_kitti_path"] = kit["launches"]["fast_nms"]
@@ -902,6 +1281,10 @@ def main() -> int:
     kernels[1]["mono"] = mk["k2"] | {
         "unit": "ms of one call at (features, features) bootstrap, (snapshot rows, features) triangulation, "
                 "(map capacity, features) tracking at 1000 features"}
+    kernels[0]["launches_rgbd_objects_path"] = rgbd_obj["launches"]["fast_nms"]
+    kernels[1]["launches_rgbd_objects_path"] = rgbd_obj["launches"]["hamming_shapes"]
+    kernels[0]["launches_stereo_objects_path"] = stereo_obj["launches"]["fast_nms"]
+    kernels[1]["launches_stereo_objects_path"] = stereo_obj["launches"]["hamming_shapes"]
     kernels[0]["launches_tum_path"] = tum["launches"]["fast_nms"]
     kernels[1]["launches_tum_path"] = tum["launches"]["hamming"]
     kernels[1]["recovery"] = {

@@ -7,18 +7,21 @@ core        SE3/Sim3 Lie groups, pinhole camera, plane and quadric algebra
 ops         hand-written CUDA kernels (FAST score + NMS, packed Hamming)
               with their plain PyTorch versions
 opt         reprojection factors, pose-only LM, Schur local BA, Sim3
-              solver, pose graph, quadric factors
+              solver, pose graph, quadric factors, joint camera-point-
+              object BA
 frontend    image pyramid, FAST, ORB, stereo, projection, mutual and
               epipolar matching, PnP, the two-view initializer
-perception  ground-plane RANSAC, aspect-prior (monocular) objects
+perception  ground-plane RANSAC, depth ellipsoid fits, Manhattan planes,
+              object-plane relations, symmetry completion, aspect-prior
+              (monocular) objects, LiDAR proposals
 slam        SoA map, tracking, monocular bootstrap and triangulation,
-              local mapping, keyframe snapshots, place queries,
+              local and joint mapping, keyframe snapshots, place queries,
               relocalization, loop closing, object table, YAML config,
               checkpoints, facade
-data        synthetic scene renderer and its detector, TUM and KITTI
-              readers, native PNG loader, trajectory/map files, the
-              make_tum and make_kitti fabricators
-eval        trajectory ATE and RPE
+data        synthetic scene renderer (with table slabs) and its detector,
+              TUM and KITTI readers, native PNG loader, trajectory/map
+              files, the make_tum and make_kitti fabricators
+eval        trajectory ATE and RPE, object-map precision, recall and IoU
 run_tum, run_kitti, run_mono   the RGB-D, stereo and monocular command lines
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; there is

@@ -37,6 +37,7 @@ TR_VELO_TO_CAM = np.array(
 )
 
 CAM_HEIGHT = 1.65  # camera above the road, as the KITTI rig
+CORNER_R = 10.0  # corner radius of a `--loop` circuit
 
 
 def _circuit_pose(s: float, straight: float, r: float):
@@ -68,31 +69,20 @@ def _to_u8(gray: torch.Tensor) -> np.ndarray:
     return (gray.to(torch.int32) & 0xFF).to(torch.uint8).cpu().numpy()
 
 
-def make_kitti_sequence(
-    out_dir: str,
-    num_frames: int = 60,
-    num_cars: int = 6,
-    height: int = 192,
-    width: int = 624,
-    baseline: float = 0.54,
-    step: float = 0.35,
-    seed: int = 2,
-    poses_out: str | None = None,
-    velo_stride: int = 2,
-    loop: bool = False,
-    loop_overlap: int = 80,
-    device=None,
-) -> None:
+def drive_scene(num_frames: int = 60, num_cars: int = 6, step: float = 0.35, seed: int = 2, loop: bool = False,
+                loop_overlap: int = 80, device=None):
+    """The scene of a drive: the room and the cars (world frame) that
+    `make_kitti_sequence` renders for these arguments, with the room's
+    half extents, the drive's start (z) and the circuit's straight length
+    (loops)."""
     dev = resolve_device(device)
-    fx = 0.58 * width
-    intr = Intrinsics(*(float(np.float32(v)) for v in (fx, fx, width / 2.0, height / 2.0)))
-    corner_r = 10.0
     car_half = ((1.7, 0.65, 0.8), (2.3, 0.85, 1.0))
+    straight = z_start = 0.0
     if loop:
         # The last `loop_overlap` frames re-drive the first stretch.
         perimeter = max(num_frames - loop_overlap, num_frames // 2) * step
-        straight = max((perimeter - 2.0 * np.pi * corner_r) / 4.0, 10.0)
-        half_span = straight / 2.0 + corner_r
+        straight = max((perimeter - 2.0 * np.pi * CORNER_R) / 4.0, 10.0)
+        half_span = straight / 2.0 + CORNER_R
         room_half = (half_span + 30.0, 4.0, half_span + 30.0)
         # One texture period across the whole world, so no two places look
         # alike.
@@ -104,7 +94,7 @@ def make_kitti_sequence(
         e = scene.ellipsoids.cpu().numpy().copy()
         for i in range(len(e)):
             s = rng0.uniform(0.0, perimeter)
-            pos, heading = _circuit_pose(s, straight, corner_r)
+            pos, heading = _circuit_pose(s, straight, CORNER_R)
             fwd = np.array([np.sin(heading), np.cos(heading)])
             left = np.array([fwd[1], -fwd[0]])
             off = rng0.uniform(5.0, 9.0) * rng0.choice([-1.0, 1.0])
@@ -126,6 +116,28 @@ def make_kitti_sequence(
         lane = np.abs(e[:, 0]) < 3.0
         e[lane, 0] = np.sign(e[lane, 0] + 1e-3) * (3.2 + np.abs(e[lane, 0]))
         scene = scene._replace(ellipsoids=torch.from_numpy(e).to(dev))
+    return scene, room_half, z_start, straight
+
+
+def make_kitti_sequence(
+    out_dir: str,
+    num_frames: int = 60,
+    num_cars: int = 6,
+    height: int = 192,
+    width: int = 624,
+    baseline: float = 0.54,
+    step: float = 0.35,
+    seed: int = 2,
+    poses_out: str | None = None,
+    velo_stride: int = 2,
+    loop: bool = False,
+    loop_overlap: int = 80,
+    device=None,
+) -> None:
+    dev = resolve_device(device)
+    fx = 0.58 * width
+    intr = Intrinsics(*(float(np.float32(v)) for v in (fx, fx, width / 2.0, height / 2.0)))
+    scene, room_half, z_start, straight = drive_scene(num_frames, num_cars, step, seed, loop, loop_overlap, dev)
 
     for sub in ("image_0", "image_1", "velodyne"):
         os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
@@ -154,7 +166,7 @@ def make_kitti_sequence(
     uv = torch.from_numpy(np.stack([xs.ravel(), ys.ravel()], -1).astype(np.float32))
     for i in range(num_frames):
         if loop:
-            pos, yaw = _circuit_pose(step * i, straight, corner_r)
+            pos, yaw = _circuit_pose(step * i, straight, CORNER_R)
             tx, tz = float(pos[0]), float(pos[1])
         else:
             yaw = 0.04 * np.sin(0.05 * i)

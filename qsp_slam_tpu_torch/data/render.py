@@ -1,9 +1,9 @@
 """Synthetic frames: a textured box room with ellipsoid objects, ray-cast
 per pixel (counterpart of `qsp_slam_tpu/data/render.py`: `make_room`,
 `make_scene`, `orbit_trajectory`, `render_frame`, `render_scene`,
-`gt_detections`).  The textures and object placements come from the same
-seeded numpy generators, so both packages render the same scene.  Table
-slabs (`num_tables > 0`) arrive with the RGB-D object path.
+`gt_detections`).  The textures, table slabs and object placements come
+from the same seeded numpy generators, so both packages render the same
+scene.
 """
 
 from __future__ import annotations
@@ -123,12 +123,15 @@ def render_frame(
 
 class Scene(NamedTuple):
     """Room + ellipsoid objects (world-frame minimal vectors: centre, XYZ
-    Euler angles, half-axes)."""
+    Euler angles, half-axes) + horizontal table slabs (Manhattan structure
+    for the relation typing)."""
 
     room: BoxRoom
     ellipsoids: torch.Tensor  # (O, 9)
     labels: torch.Tensor  # (O,) int32 semantic labels
     albedo: torch.Tensor  # (O,) f32 base gray value
+    slabs: torch.Tensor | None = None  # (S, 5) cx, y_top, cz, half x, half z
+    slab_albedo: torch.Tensor | None = None  # (S,)
 
 
 def make_scene(
@@ -136,29 +139,42 @@ def make_scene(
     seed: int = 1,
     half_extent=(4.0, 2.2, 4.0),
     num_tables: int = 0,
+    table_height: float = 0.75,
     half_range=((0.12, 0.10, 0.12), (0.35, 0.30, 0.35)),
     z_range=None,
     tex_period: float = 10.0,
     device=None,
 ) -> Scene:
     """Room with ellipsoid objects resting on the floor (y = +hy, y down).
+    With `num_tables` > 0, table slabs `table_height` above the floor are
+    placed first, and the first `num_tables` objects rest on them.
     `half_range` bounds the per-axis half-extents; `z_range` overrides the
     forward placement band."""
-    if num_tables > 0:
-        raise NotImplementedError("table slabs arrive with ROADMAP slice 6 (quadric objects)")
     dev = resolve_device(device)
     room = make_room(half_extent=half_extent, seed=seed, tex_period=tex_period, device=dev)
     rng = np.random.default_rng(seed + 100)
     hx, hy, hz = half_extent
     if z_range is None:
         z_range = (0.8, hz * 0.9)
+    slabs, slab_albedo = [], []
+    for _ in range(num_tables):
+        cx = rng.uniform(-hx * 0.4, hx * 0.4)
+        cz = rng.uniform(1.6, hz * 0.8)
+        slabs.append([cx, hy - table_height, cz, rng.uniform(0.7, 1.0), rng.uniform(0.5, 0.8)])
+        slab_albedo.append(rng.uniform(90.0, 150.0))
     els, labels, albedo = [], [], []
     for i in range(num_objects):
         half = rng.uniform(half_range[0], half_range[1])
         yaw = rng.uniform(0, np.pi)
-        x = rng.uniform(-hx * 0.6, hx * 0.6)
-        z = rng.uniform(*z_range)
-        y = hy - half[1]  # resting on the floor
+        if i < num_tables:  # on table i, inside its footprint
+            s = slabs[i]
+            x = s[0] + rng.uniform(-0.4, 0.4) * s[3]
+            z = s[2] + rng.uniform(-0.4, 0.4) * s[4]
+            y = s[1] - half[1]
+        else:
+            x = rng.uniform(-hx * 0.6, hx * 0.6)
+            z = rng.uniform(*z_range)
+            y = hy - half[1]  # resting on the floor
         els.append([x, y, z, 0.0, yaw, 0.0, half[0], half[1], half[2]])
         label = i % 3  # tied to an albedo band, a visual correlate
         labels.append(label)
@@ -168,6 +184,8 @@ def make_scene(
         ellipsoids=torch.from_numpy(np.array(els, np.float32).reshape(-1, 9)).to(dev),
         labels=torch.from_numpy(np.array(labels, np.int32)).to(dev),
         albedo=torch.from_numpy(np.array(albedo, np.float32)).to(dev),
+        slabs=torch.from_numpy(np.array(slabs, np.float32).reshape(-1, 5)).to(dev),
+        slab_albedo=torch.from_numpy(np.array(slab_albedo, np.float32)).to(dev),
     )
 
 
@@ -202,8 +220,6 @@ def render_scene(
         T_cw = torch.from_numpy(np.asarray(T_cw, np.float32))
     T_cw = T_cw.to(dev, torch.float32)
     gray_bg, depth_bg = render_frame(scene.room, T_cw, intr, height, width)
-    if scene.ellipsoids.shape[0] == 0:
-        return gray_bg, depth_bg, torch.full(gray_bg.shape, -1, dtype=torch.int32, device=dev)
     T_wc = lie.inv_se3(T_cw)
     c_w = T_wc[:3, 3]
     yy = torch.arange(height, dtype=torch.float32, device=dev)[:, None].expand(height, width)
@@ -212,6 +228,22 @@ def render_scene(
         [(xx - intr.cx) / intr.fx, (yy - intr.cy) / intr.fy, torch.ones_like(xx)], dim=-1
     )
     rays_w = rays_c @ T_wc[:3, :3].T
+    if scene.slabs is not None and scene.slabs.shape[0] > 0:
+        # Table tops: the ray meets the plane y = y_top inside the slab.
+        ts, gs = [], []
+        for (cx, y_top, cz, shx, shz), alb in zip(scene.slabs, scene.slab_albedo):
+            dy = rays_w[..., 1]
+            t = (y_top - c_w[1]) / torch.where(torch.abs(dy) < 1e-9, 1e-9, dy)
+            p = c_w + rays_w * t[..., None]
+            inside = (torch.abs(p[..., 0] - cx) < shx) & (torch.abs(p[..., 2] - cz) < shz)
+            ts.append(torch.where((t > 0.05) & inside, t, torch.inf))
+            gs.append(alb * (0.8 + 0.4 * (0.5 + 0.5 * torch.sin(17.0 * p[..., 0]) * torch.sin(13.0 * p[..., 2]))))
+        t_slab, s_best = torch.min(torch.stack(ts), dim=0)
+        hit = torch.isfinite(t_slab) & ((t_slab < depth_bg) | (depth_bg <= 0.0))
+        gray_bg = torch.where(hit, torch.gather(torch.stack(gs), 0, s_best[None])[0], gray_bg)
+        depth_bg = torch.where(hit, t_slab, depth_bg)
+    if scene.ellipsoids.shape[0] == 0:
+        return gray_bg, depth_bg, torch.full(gray_bg.shape, -1, dtype=torch.int32, device=dev)
     light = torch.tensor([0.4, -0.8, 0.45], dtype=torch.float32, device=dev)
     light = light / torch.linalg.vector_norm(light)
     ts, gs = [], []

@@ -46,25 +46,26 @@ def border_edge_mask(bbox: torch.Tensor, img_wh: tuple, margin: float = 2.0) -> 
 
 
 def gravity_residual(e: torch.Tensor, ground_normal_w: torch.Tensor) -> torch.Tensor:
-    """(..., 2): the object z axis's components orthogonal to `up`."""
+    """(..., 2): the object z axis's components orthogonal to `up`; the up
+    vector (3,) or one per object (..., 3)."""
     z_axis = quadric.euler_to_rotmat(e[..., 3:6])[..., :, 2]
-    up = ground_normal_w / torch.linalg.vector_norm(ground_normal_w)
+    up = ground_normal_w / torch.linalg.vector_norm(ground_normal_w, dim=-1, keepdim=True)
     ex = torch.tensor([1.0, 0.0, 0.0], dtype=up.dtype, device=up.device)
     ey = torch.tensor([0.0, 1.0, 0.0], dtype=up.dtype, device=up.device)
-    a = torch.where(torch.abs(up[0]) < 0.9, ex, ey)
-    b1 = a - up * torch.dot(a, up)
-    b1 = b1 / torch.linalg.vector_norm(b1)
-    b2 = torch.linalg.cross(up, b1)
-    return torch.stack([z_axis @ b1, z_axis @ b2], dim=-1)
+    a = torch.where(torch.abs(up[..., 0:1]) < 0.9, ex, ey)
+    b1 = a - up * torch.sum(a * up, dim=-1, keepdim=True)
+    b1 = b1 / torch.linalg.vector_norm(b1, dim=-1, keepdim=True)
+    b2 = torch.linalg.cross(up, b1, dim=-1)
+    return torch.stack([torch.sum(z_axis * b1, dim=-1), torch.sum(z_axis * b2, dim=-1)], dim=-1)
 
 
 def support_residual(e: torch.Tensor, ground_plane_w: torch.Tensor) -> torch.Tensor:
-    """(..., 1): signed plane distance of the object's bottom point
-    (centre - c * z axis)."""
+    """(..., 1): signed distance of the object's bottom point (centre -
+    c * z axis) to the plane (4,) or to each object's plane (..., 4)."""
     R = quadric.euler_to_rotmat(e[..., 3:6])
     bottom = e[..., 0:3] - R[..., :, 2] * e[..., 8:9]
-    n = ground_plane_w[:3]
-    return ((bottom @ n + ground_plane_w[3]) / torch.linalg.vector_norm(n))[..., None]
+    n = ground_plane_w[..., :3]
+    return ((torch.sum(bottom * n, dim=-1) + ground_plane_w[..., 3]) / torch.linalg.vector_norm(n, dim=-1))[..., None]
 
 
 def bbox_term(e, obs: ObjectObservations, K, w_bbox: float, bbox_sigma: float, img_wh):
@@ -113,7 +114,7 @@ def refine_object(
     e_init: torch.Tensor,  # (O, 9)
     obs: ObjectObservations,  # (O, M, ...)
     K: torch.Tensor,
-    ground_plane_w: torch.Tensor,  # (4,)
+    ground_plane_w: torch.Tensor,  # (4,), or (O, 4): each object's supporting plane
     iters: int = 10,
     w_bbox: float = 1.0,
     w_gravity: float = 100.0,
@@ -122,9 +123,10 @@ def refine_object(
     img_wh: tuple | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """LM of each object against its box history plus the gravity and
-    support priors -> (e (O, 9), cost (O,)).  `img_wh` drops box edges on
-    the image border from the residual."""
-    up = -ground_plane_w[:3]
+    support priors -> (e (O, 9), cost (O,)); a per-object plane feeds both
+    priors of its object.  `img_wh` drops box edges on the image border
+    from the residual."""
+    up = -ground_plane_w[..., :3]
 
     def residual(e):
         return torch.cat([

@@ -1,11 +1,13 @@
 """Schur-complement normal equations for bundle adjustment (counterpart of
-`qsp_slam_tpu/opt/schur.py`, the parts local BA uses).
+`qsp_slam_tpu/opt/schur.py`).
 
-Normal blocks form from per-edge Jacobians without floating-point
-scatters (so sums are deterministic on the card): camera sums through a
-one-hot product over the K window cameras, point sums through a
-per-point edge-slot table.  Points are marginalized with closed-form 3x3
-inverses and the reduced camera system (6K x 6K) is solved densely.
+Local BA's normal blocks form from per-edge Jacobians without floating-
+point scatters (so its sums are deterministic on the card): camera sums
+through a one-hot product over the K window cameras, point sums through a
+per-point edge-slot table.  The joint camera-point-object BA uses the
+scatter-add build (`build_normal_blocks`) and the dense solve over stacked
+pose vertices (`solve_dense_pose_system`).  Points are marginalized with
+closed-form 3x3 inverses and the reduced systems are solved densely.
 """
 
 from __future__ import annotations
@@ -22,6 +24,39 @@ class NormalBlocks(NamedTuple):
     H_pp: torch.Tensor  # (N, 3, 3) point diagonal blocks
     b_p: torch.Tensor  # (N, 3) point rhs
     B_nk: torch.Tensor  # (N, K, 6, 3) camera-point coupling, by point
+
+
+def build_normal_blocks(
+    r: torch.Tensor,
+    Jc: torch.Tensor,
+    Jp: torch.Tensor,
+    w: torch.Tensor,
+    kf_idx: torch.Tensor,
+    pt_idx: torch.Tensor,
+    num_cams: int,
+    num_points: int,
+    cam_fixed: torch.Tensor,
+) -> NormalBlocks:
+    """Weighted normal blocks from r (E, R), Jc (E, R, 6), Jp (E, R, 3) and
+    per-row weights w (E, R), summed per camera, per point and per (point,
+    camera) pair by scatter-adds (on the card in no fixed order); fixed
+    cameras get zero Jacobians."""
+    free = 1.0 - cam_fixed.to(r.dtype)
+    Jc = Jc * free[kf_idx][:, None, None]
+    JcW = Jc * w[..., None]
+    JpW = Jp * w[..., None]
+    kf, pt = kf_idx.long(), pt_idx.long()
+
+    def segment_sum(x, idx, n):
+        return x.new_zeros((n,) + x.shape[1:]).index_add_(0, idx, x)
+
+    H_cc = segment_sum(torch.einsum("era,erb->eab", JcW, Jc), kf, num_cams)
+    b_c = segment_sum(-torch.einsum("era,er->ea", JcW, r), kf, num_cams)
+    H_pp = segment_sum(torch.einsum("era,erb->eab", JpW, Jp), pt, num_points)
+    b_p = segment_sum(-torch.einsum("era,er->ea", JpW, r), pt, num_points)
+    # A point sees a camera at most once, so this sum is a layout change.
+    B_nk = segment_sum(torch.einsum("era,erb->eab", JcW, Jp), pt * num_cams + kf, num_points * num_cams)
+    return NormalBlocks(H_cc, b_c, H_pp, b_p, B_nk.reshape(num_points, num_cams, 6, 3))
 
 
 def point_slot_table(
@@ -124,6 +159,32 @@ def cholesky_solve_or_nan(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(info == 0, x, torch.nan)
 
 
+def _jacobi_cholesky_solve(S: torch.Tensor, rhs: torch.Tensor, fixed: torch.Tensor) -> torch.Tensor:
+    """Solve the damped system S (n, n) x = rhs (n,) with identity rows and
+    columns and zero rhs for the `fixed` (n,) unknowns, symmetrized and
+    Jacobi-scaled to unit diagonal so the f32 Cholesky survives the ~1e9
+    raw condition number of vision Hessians; NaN where it fails."""
+    S = torch.where(fixed[:, None] | fixed[None, :], 0.0, S)
+    S = S + torch.diag(fixed.to(S.dtype))
+    rhs = rhs * (1.0 - fixed.to(S.dtype))
+    S = 0.5 * (S + S.T)
+    dinv = torch.rsqrt(torch.clamp(torch.diagonal(S), min=1e-12))
+    y = cholesky_solve_or_nan(S * dinv[:, None] * dinv[None, :], rhs * dinv)
+    return y * dinv
+
+
+def solve_dense_pose_system(
+    S: torch.Tensor,  # (V, 6, V, 6) damped normal or Schur system over pose vertices
+    rhs: torch.Tensor,  # (V, 6)
+    fixed_v: torch.Tensor,  # (V,) bool
+) -> torch.Tensor:
+    """Dense solve over V stacked 6-DoF pose vertices -> delta (V, 6); fixed
+    vertices take no update."""
+    V = S.shape[0]
+    return _jacobi_cholesky_solve(S.reshape(V * 6, V * 6), rhs.reshape(-1),
+                                  torch.repeat_interleave(fixed_v, 6)).reshape(V, 6)
+
+
 def solve_reduced_camera(
     H_cc: torch.Tensor,  # (K, 6, 6) undamped camera blocks
     U: torch.Tensor,  # (K, 6, K, 6)
@@ -141,15 +202,7 @@ def solve_reduced_camera(
     eye6 = torch.eye(6, dtype=dtype, device=H_cc.device)
     H_cc_d = H_cc + lm_lambda * H_cc * eye6  # Marquardt damping
     S = -U.reshape(K * 6, K * 6) + torch.block_diag(*H_cc_d.unbind(0))
-    fixed6 = torch.repeat_interleave(cam_fixed, 6)
-    S = torch.where(fixed6[:, None] | fixed6[None, :], 0.0, S)
-    S = S + torch.diag(fixed6.to(dtype))
-    rhs = rhs * (1.0 - cam_fixed.to(dtype))[:, None]
-    S = 0.5 * (S + S.T)
-    dinv = torch.rsqrt(torch.clamp(torch.diagonal(S), min=1e-12))
-    S_sc = S * dinv[:, None] * dinv[None, :]
-    y = cholesky_solve_or_nan(S_sc, rhs.reshape(-1) * dinv)
-    return (y * dinv).reshape(K, 6)
+    return _jacobi_cholesky_solve(S, rhs.reshape(-1), torch.repeat_interleave(cam_fixed, 6)).reshape(K, 6)
 
 
 def solve_schur(

@@ -112,9 +112,9 @@ def ransac_plane(
     score = torch.where(degenerate, -1, score)
     if normal_hint is not None:
         score = torch.where(torch.abs(n @ hint) >= hint_cos_min, score, -1)
-    best = torch.argmax(score)
-    best_ok = score[best] > 0
-    n_b, d_b = n[best], d[best]
+    best = torch.argmax(score).reshape(1)  # a (1,) index: indexing with it reads nothing back
+    best_ok = score[best][0] > 0
+    n_b, d_b = n[best][0], d[best][0]
 
     # Least squares on the inliers: weighted centroid and the smallest
     # eigenvector of the scatter, oriented like the winner.
@@ -143,8 +143,8 @@ def adaptive_inlier_th(pts: torch.Tensor, valid: torch.Tensor, rel: float = 0.02
     times the median point distance from the origin."""
     r = torch.linalg.vector_norm(pts, dim=-1)
     srt = torch.sort(torch.where(valid, r, torch.inf)).values
-    mid = torch.clamp((torch.sum(valid) - 1) // 2, 0, r.shape[0] - 1)
-    return rel * torch.clamp(srt[mid], min=1e-3)
+    mid = torch.clamp((torch.sum(valid) - 1) // 2, 0, r.shape[0] - 1).reshape(1)
+    return rel * torch.clamp(srt[mid][0], min=1e-3)
 
 
 def estimate_ground_plane_points(

@@ -1,15 +1,20 @@
 """KITTI odometry stereo command line (counterpart of
-`qsp_slam_tpu/run_kitti.py`, point-only): tracks a sequence's stereo
-pairs with loop closing on, and prints one JSON line:
+`qsp_slam_tpu/run_kitti.py`): tracks a sequence's stereo pairs with loop
+closing on, with object landmarks from per-frame detection caches
+(`--detections`) or from geometric proposals on the velodyne scans
+(`--lidar-detections`, computed at keyframes only), and prints one JSON
+line:
 `SlamSystem.summary()` plus, given `--poses`, the ATE, RPE and keyframe
 ATE (the keyframe chain after loop correction).  With `--save-dir` it
 writes `trajectory.txt` (KITTI format) and `report.json` (the summary
 with `loop_events`, `loop_scan`, `capacity_events`, `resets`,
-`relocalizations` and `peak_rss_mb`).  It runs on CUDA unless given
+`relocalizations`, `peak_rss_mb` and, with LiDAR detections,
+`det_ms_median` and `det_keyframes`).  It runs on CUDA unless given
 `--cpu`.
 
     python -m qsp_slam_tpu_torch.run_kitti SEQ_DIR [--poses poses.txt]
-        [--save-dir out] [--max-frames F] [--global-ba] [--cpu]
+        [--save-dir out] [--max-frames F] [--detections DIR |
+        --lidar-detections] [--global-ba] [--cpu]
 """
 
 from __future__ import annotations
@@ -23,9 +28,7 @@ import sys
 import numpy as np
 
 _LATER = {
-    "detections": "slices 6 and 8 (objects, learned detectors)",
-    "lidar_detections": "slices 6 and 8 (objects, learned detectors)",
-    "detector3d": "slices 6 and 8 (objects, learned detectors)",
+    "detector3d": "slice 8 (learned detectors)",
     "mesh": "slice 9 (distribution)",
 }
 
@@ -36,9 +39,9 @@ def main(argv=None):
     ap.add_argument("--poses", default=None, help="ground-truth poses file for ATE")
     ap.add_argument("--save-dir", default=None)
     ap.add_argument("--max-frames", type=int, default=None)
-    ap.add_argument("--detections", default=None, help="per-frame detection caches (not in this port yet)")
+    ap.add_argument("--detections", default=None, help="directory of per-frame detection caches (<index>.npz)")
     ap.add_argument("--lidar-detections", action="store_true",
-                    help="detections from the velodyne scans (not in this port yet)")
+                    help="detections from the velodyne scans (ground removal + clustering), at keyframes")
     ap.add_argument("--detector3d", default=None, metavar="PARAMS_NPZ",
                     help="learned 3D detector (not in this port yet)")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of CUDA")
@@ -54,11 +57,12 @@ def main(argv=None):
         if getattr(args, name) not in (None, False):
             raise NotImplementedError(f"--{name.replace('_', '-')} arrives with ROADMAP {where}")
 
-    from .data.io import save_trajectory_kitti
+    from .data.io import load_detection_cache, save_trajectory_kitti
     from .data.kitti import KittiSequence
     from .eval.ate import ate_rmse, rpe
     from .frontend.orb import OrbConfig
     from .frontend.pyramid import PyramidConfig
+    from .perception.lidar_detect import lidar_detections
     from .slam.system import SlamSystem
     from .slam.tracking import TrackingConfig
 
@@ -79,7 +83,17 @@ def main(argv=None):
     n = len(seq) if args.max_frames is None else min(len(seq), args.max_frames)
     # Stereo pairs decode ahead on the native worker pool.
     for idx, (gl, gr) in zip(range(n), seq.prefetch_pairs(range(n))):
-        sysm.track_stereo(gl, gr)
+        det = None
+        if args.detections:
+            p = os.path.join(args.detections, f"{idx}.npz")
+            if os.path.exists(p):
+                det = load_detection_cache(p)
+        elif args.lidar_detections:
+            # A lazy provider: the system calls it at keyframes only.
+            def det(i=idx):
+                pts_cam = seq.transform_velo_to_cam(seq.load_velodyne(i, max_points=30000))
+                return lidar_detections(pts_cam, cfg.intr, W, H, device=sysm.device)
+        sysm.track_stereo(gl, gr, det)
         if (idx + 1) % 50 == 0:
             print(f"[{idx + 1}/{n}] kfs={sysm.stats['keyframes']}", file=sys.stderr)
 
@@ -112,6 +126,10 @@ def main(argv=None):
         for key, default in (("loop_events", []), ("loop_scan", []), ("capacity_events", []),
                              ("resets", 0), ("relocalizations", 0)):
             report[key] = sysm.stats.get(key, default)
+        det_ms = sysm.stats.get("det_ms", [])
+        if det_ms:
+            report["det_ms_median"] = float(np.median(det_ms))
+            report["det_keyframes"] = len(det_ms)
         report["peak_rss_mb"] = round(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0, 1)
         with open(os.path.join(args.save_dir, "report.json"), "w") as f:
             json.dump(report, f)

@@ -1,13 +1,17 @@
-"""TUM RGB-D command line (counterpart of `qsp_slam_tpu/run_tum.py`,
-point-only): reads a TUM-format sequence, tracks every `--skip`-th frame,
-and prints one JSON line: `SlamSystem.summary()`, the ATE, RPE and
-keyframe ATE against the ground truth when it has one, and `decoded_by`,
-the number of frames each decoder read.  With `--save-dir` it writes
-`CameraTrajectory.txt` (TUM format) and `map.npz`.  It runs on CUDA unless
-given `--cpu`.
+"""TUM RGB-D command line (counterpart of `qsp_slam_tpu/run_tum.py`):
+reads a TUM-format sequence, tracks every `--skip`-th frame (with the
+frame's detection cache `<index>.npz` from `--detections`, when there is
+one, feeding the object landmarks), and prints one JSON line:
+`SlamSystem.summary()`, the ATE, RPE and keyframe ATE against the ground
+truth when it has one, and `decoded_by`, the number of frames each
+decoder read.  With `--save-dir` it writes `CameraTrajectory.txt` (TUM
+format) and `map.npz` with the objects.  The reference's scene export and
+object render (`export_scene`, `render_objects_png`) come with later
+slices (10 and 7).  It runs on CUDA unless given `--cpu`.
 
     python -m qsp_slam_tpu_torch.run_tum SEQUENCE_DIR [--config seq.yaml]
-        [--save-dir out] [--skip N] [--max-frames F] [--global-ba] [--cpu]
+        [--save-dir out] [--skip N] [--max-frames F] [--detections DIR]
+        [--global-ba] [--cpu]
 """
 
 from __future__ import annotations
@@ -22,7 +26,6 @@ from collections import Counter
 import numpy as np
 
 _LATER = {
-    "detections": "slice 6 (quadric objects)",
     "detector": "slice 8 (learned detectors)",
     "save_frames": "slice 10 (tools: frame drawer)",
     "mesh": "slice 9 (distribution)",
@@ -36,7 +39,7 @@ def main(argv=None):
     ap.add_argument("--save-dir", default=None)
     ap.add_argument("--skip", type=int, default=1, help="process every Nth frame")
     ap.add_argument("--max-frames", type=int, default=None)
-    ap.add_argument("--detections", default=None, help="per-frame detection caches (not in this port yet)")
+    ap.add_argument("--detections", default=None, help="directory of per-frame detection caches (<index>.npz)")
     ap.add_argument("--detector", default=None, help="2D-detector weights (not in this port yet)")
     ap.add_argument("--save-frames", default=None, help="annotated frames (not in this port yet)")
     ap.add_argument("--mesh", type=int, default=None, help="sharded global BA (not in this port yet)")
@@ -48,7 +51,7 @@ def main(argv=None):
         if getattr(args, name) is not None:
             raise NotImplementedError(f"--{name.replace('_', '-')} arrives with ROADMAP {where}")
 
-    from .data.io import save_map, save_trajectory_tum
+    from .data.io import load_detection_cache, save_map, save_trajectory_tum
     from .data.tum import TumSequence
     from .eval.ate import ate_rmse, rpe
     from .slam.system import SlamSystem
@@ -67,8 +70,13 @@ def main(argv=None):
     if args.max_frames:
         indices = indices[: args.max_frames]
     # Frames decode ahead on the native worker pool.
-    for gray, depth, t, T_cw_gt, _ in seq.prefetch_iter(indices):
-        sysm.track_rgbd(gray, depth)
+    for gray, depth, t, T_cw_gt, idx in seq.prefetch_iter(indices):
+        det = None
+        if args.detections:
+            p = os.path.join(args.detections, f"{idx}.npz")
+            if os.path.exists(p):
+                det = load_detection_cache(p)
+        sysm.track_rgbd(gray, depth, det)
         timestamps.append(t)
         gt.append(T_cw_gt)
         if len(timestamps) % 50 == 0:
@@ -98,7 +106,7 @@ def main(argv=None):
     if args.save_dir:
         os.makedirs(args.save_dir, exist_ok=True)
         save_trajectory_tum(os.path.join(args.save_dir, "CameraTrajectory.txt"), timestamps, est)
-        save_map(os.path.join(args.save_dir, "map.npz"), sysm.map_state)
+        save_map(os.path.join(args.save_dir, "map.npz"), sysm.map_state, sysm.objects)
     print(json.dumps(out))
     return out
 

@@ -1,16 +1,15 @@
 """Save and resume a session (counterpart of
 `qsp_slam_tpu/slam/checkpoint.py`): the map, the snapshot store, the
-object table, the ground plane, the tracker's fields, the sensor, the
-monocular bootstrap's reference frame and its age, the loop count and the
-consistency gate's history, the stats, the trajectory and the
-capacities, in one npz with the JAX package's keys (`map.*`, `loop.*`,
-`obj.*`, `monoref.*`, `Tcw`, `sensor`, `ground_plane`, ...).  So a
-checkpoint the JAX package wrote resumes in the port, which carries the
-state across as `convert.py` does.  The port also keeps `gp_inliers`, the
-support of the monocular ground plane (a JAX checkpoint resumes it at 0).
-
-A checkpoint with Manhattan planes or object relations (the RGB-D
-object path) raises `NotImplementedError` naming its slice.
+object table, the Manhattan plane set and the object-plane relations,
+the ground plane and the keyframes fused into it, the tracker's fields,
+the sensor, the monocular bootstrap's reference frame and its age, the
+loop count and the consistency gate's history, the stats, the trajectory
+and the capacities, in one npz with the JAX package's keys (`map.*`,
+`loop.*`, `obj.*`, `plane.*`, `rel.*`, `monoref.*`, `Tcw`, `sensor`,
+`ground_plane`, `gp_count`, ...).  So a checkpoint the JAX package wrote
+resumes in the port, which carries the state across as `convert.py`
+does.  The port also keeps `gp_inliers`, the support of the monocular
+ground plane (a JAX checkpoint resumes it at 0).
 """
 
 from __future__ import annotations
@@ -21,6 +20,8 @@ import numpy as np
 import torch
 
 from ..convert import frame_from_numpy, loop_state_from_numpy, map_state_from_numpy, object_table_from_numpy
+from ..perception.manhattan import PlaneSet, empty_plane_set
+from ..perception.relations import Relations
 from .loop_closing import ConsistencyGate
 
 
@@ -73,6 +74,9 @@ def save_checkpoint(path: str, system) -> None:
     data.update(_flatten("map.", system.map_state))
     data.update(_flatten("loop.", system.loop_state))
     data.update(_flatten("obj.", system.objects))
+    data.update(_flatten("plane.", system.plane_set))
+    if system.relations is not None:
+        data.update(_flatten("rel.", system.relations))
     data["Tcw"] = system.Tcw
     data["velocity"] = system.velocity
     data["initialized"] = np.asarray(system.initialized)
@@ -85,6 +89,7 @@ def save_checkpoint(path: str, system) -> None:
     data["kf_fresh"] = np.asarray(system._kf_fresh)
     if system.ground_plane is not None:
         data["ground_plane"] = system.ground_plane
+    data["gp_count"] = np.asarray(system._gp_count)
     data["gp_inliers"] = np.asarray(system._gp_inliers)
     if system._mono_ref is not None:
         data.update(_flatten("monoref.", system._mono_ref))
@@ -95,10 +100,8 @@ def save_checkpoint(path: str, system) -> None:
     np.savez_compressed(path, **data)
 
 
-def _refuse_later(data: dict) -> None:
-    if ("plane.valid" in data and np.asarray(data["plane.valid"]).any()) or "rel.kind" in data:
-        raise NotImplementedError("Manhattan planes and object relations resume with ROADMAP slice 6 "
-                                  "(quadric objects)")
+def _tensors(cls, prefix: str, data: dict, device):
+    return cls(**{k: torch.from_numpy(np.array(data[prefix + k])).to(device) for k in cls._fields})
 
 
 def load_checkpoint(path: str, system) -> None:
@@ -107,7 +110,6 @@ def load_checkpoint(path: str, system) -> None:
     resumes with the grown stores."""
     with np.load(path) as z:
         data = {k: z[k] for k in z.files}
-    _refuse_later(data)
     _migrate_loop_state(data)
     system.map_state = map_state_from_numpy(_fields("map.", data), system.device)
     system.loop_state = loop_state_from_numpy(_fields("loop.", data), system.device)
@@ -115,8 +117,12 @@ def load_checkpoint(path: str, system) -> None:
     if "obj.valid" in data:
         system.objects = object_table_from_numpy(_fields("obj.", data), system.device)
         system.omax = int(system.objects.valid.shape[0])
+    system.plane_set = (_tensors(PlaneSet, "plane.", data, system.device) if "plane.valid" in data
+                        else empty_plane_set(8, device=system.device))
+    system.relations = _tensors(Relations, "rel.", data, system.device) if "rel.kind" in data else None
     gp = data.get("ground_plane")
     system.ground_plane = None if gp is None else np.asarray(gp, np.float32)
+    system._gp_count = int(data.get("gp_count", 0))
     system._gp_inliers = int(data.get("gp_inliers", 0))
     if "monoref.depth" in data:
         system._mono_ref = frame_from_numpy(_fields("monoref.", data), system.device)

@@ -1,7 +1,7 @@
 """Object landmarks: the SoA ellipsoid table, IoU association, keyframe
-integration, refinement, culling and duplicate merging (counterpart of
-`qsp_slam_tpu/slam/objects.py`, the monocular path; the depth path's
-`refine_objects` comes with the RGB-D and stereo objects).
+integration, refinement (the depth path's `refine_objects` and the
+monocular `refine_objects_mono`), culling and duplicate merging
+(counterpart of `qsp_slam_tpu/slam/objects.py`).
 
 The table has the JAX package's fields, dtypes and capacities, so a JAX
 checkpoint's `obj.*` arrays load as they are.  Functions return a new
@@ -17,7 +17,7 @@ import torch
 
 from .. import resolve_device
 from ..core import lie, quadric
-from ..opt.quadric_factors import ObjectObservations
+from ..opt.quadric_factors import ObjectObservations, refine_object
 
 
 class ObjectTable(NamedTuple):
@@ -171,38 +171,43 @@ def integrate_keyframe(
     def put(name, mask, val):
         tb[name] = torch.where(_rows(mask, tb[name]), val, tb[name])
 
+    def at(name, o):
+        # The row of object o, a (1,) index (a 0-dim one would be read back).
+        return tb[name][o][0]
+
     for i in range(D):
         oid = assoc.obj_for_det[i]
         is_assoc = (oid >= 0) & det_valid[i]
         fit = det_fit_ok[i]
-        o = torch.clamp(oid, min=0).long()
+        o = torch.clamp(oid, min=0).long().reshape(1)
         row = (ids == o) & is_assoc
         # Associated: the observation ring, the pose ring, motion votes.
-        cell = row[:, None] & (slots == tb["obs_next"][o] % M)[None, :]
+        cell = row[:, None] & (slots == at("obs_next", o) % M)[None, :]
         put("obs_Tcw", cell, Tcw)
         put("obs_bbox", cell, det_bbox[i])
         put("obs_weight", cell, det_prob[i])
         put("obs_next", row, tb["obs_next"] + 1)
         put("obs_count", row, tb["obs_count"] + 1)
         pm_row = row & fit
-        pm_cell = pm_row[:, None] & (slots == tb["pm_next"][o] % M)[None, :]
+        pm_cell = pm_row[:, None] & (slots == at("pm_next", o) % M)[None, :]
         put("pm_Toc", pm_cell, T_oc[i])
         put("pm_kf", pm_cell, kf)
         put("pm_next", pm_row, tb["pm_next"] + 1)
-        e_old = tb["ellipsoid"][o]
+        e_old = at("ellipsoid", o)
         moved = fit & (torch.linalg.vector_norm(e_w[i, 0:3] - e_old[0:3]) > dynamic_dist)
-        votes = tb["move_votes"][o] + moved.to(torch.int32)
+        votes = at("move_votes", o) + moved.to(torch.int32)
         is_dyn = votes >= 2
-        dk = torch.clamp(kf - tb["last_seen_kf"][o], min=1).to(e_old.dtype)
+        dk = torch.clamp(kf - at("last_seen_kf", o), min=1).to(e_old.dtype)
         v_meas = (e_w[i, 0:3] - e_old[0:3]) / dk
         dyaw = _wrap(e_w[i, 4] - e_old[4])
-        vel_c = torch.where(fit, 0.6 * tb["vel_center"][o] + 0.4 * v_meas, tb["vel_center"][o])
-        vel_y = torch.where(fit, 0.6 * tb["vel_yaw"][o] + 0.4 * dyaw / dk, tb["vel_yaw"][o])
+        vel_c = torch.where(fit, 0.6 * at("vel_center", o) + 0.4 * v_meas, at("vel_center", o))
+        vel_y = torch.where(fit, 0.6 * at("vel_yaw", o) + 0.4 * dyaw / dk, at("vel_yaw", o))
         snap = is_dyn & fit
         e_new = torch.where(snap, e_w[i], e_old)
-        t_old = tb["Tow_shape"][o, :3, 3]
-        t_shape = torch.where(snap, t_old - tb["Tow_shape"][o, :3, :3] @ (e_new[0:3] - e_old[0:3]), t_old)
-        put("prob", row, torch.clamp(tb["prob"][o] + 0.1 * det_prob[i], max=1.0))
+        T_old = at("Tow_shape", o)
+        t_old = T_old[:3, 3]
+        t_shape = torch.where(snap, t_old - T_old[:3, :3] @ (e_new[0:3] - e_old[0:3]), t_old)
+        put("prob", row, torch.clamp(at("prob", o) + 0.1 * det_prob[i], max=1.0))
         put("ellipsoid", row, e_new)
         Tow = tb["Tow_shape"].clone()
         Tow[:, :3, 3] = torch.where(row[:, None], t_shape, Tow[:, :3, 3])
@@ -242,6 +247,28 @@ def cull_objects(table: ObjectTable, current_kf: int, max_age_kf: int = 8, min_o
     more than `max_age_kf` keyframes."""
     drop = table.valid & ((current_kf - table.last_seen_kf) > max_age_kf) & (table.obs_count < min_obs)
     return table._replace(valid=table.valid & ~drop)
+
+
+def refine_objects(
+    table: ObjectTable,
+    K: torch.Tensor,
+    ground_plane_w: torch.Tensor,
+    iters: int = 8,
+    support_planes_w: torch.Tensor | None = None,
+    img_wh: tuple | None = None,
+) -> ObjectTable:
+    """Refinement of every live static object with at least two
+    observations against its box history, the gravity prior and the
+    support prior, all objects in one batched LM.  `support_planes_w`
+    (O, 4) gives each object its supporting plane (an object on a table
+    rests on the table); it defaults to the ground plane.  Dynamic objects
+    keep their last fit."""
+    planes = ground_plane_w.expand(table.ellipsoid.shape[0], 4) if support_planes_w is None else support_planes_w
+    obs = ObjectObservations(Tcw=table.obs_Tcw, bbox=table.obs_bbox, weight=table.obs_weight)
+    e_new, _ = refine_object(table.ellipsoid, obs, K, planes, iters=iters, img_wh=img_wh)
+    enough = torch.sum(table.obs_weight > 0, dim=-1) >= 2
+    refine = table.valid & ~table.dynamic & enough
+    return table._replace(ellipsoid=torch.where(refine[:, None], e_new, table.ellipsoid))
 
 
 def refine_objects_mono(

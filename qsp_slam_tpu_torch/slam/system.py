@@ -1,6 +1,6 @@
 """System facade: the single-controller SLAM loop (counterpart of
-`qsp_slam_tpu/slam/system.py`: point-only RGB-D and stereo tracking,
-monocular tracking with its object landmarks).
+`qsp_slam_tpu/slam/system.py`: RGB-D, stereo and monocular tracking with
+their object landmarks).
 
 Per frame: features + tracking, a host-side consistency gate and keyframe
 policy; on a keyframe: insertion, covisibility local BA, point fusion,
@@ -13,8 +13,17 @@ Localization-only mode tracks against a frozen map.  The monocular
 sensor bootstraps from two views, triangulates new points against the
 previous keyframe, closes loops over Sim(3), and spawns object landmarks
 from detection boxes, the ground plane of its sparse map and aspect
-priors.  Capabilities of later port slices raise `NotImplementedError`
-naming the slice (see ROADMAP.md queue A).
+priors.  With detections, an RGB-D or stereo keyframe fuses the ground
+plane, fits one ellipsoid per detection (from sampled depth, completed
+down to its supporting plane, or from the stereo keypoints in its box),
+associates and integrates them, and refines the objects against their
+box histories; RGB-D keyframes also track the Manhattan planes and type
+object-plane relations, which route each object's supporting plane into
+the refinement, and stereo keyframes run the joint camera-point-object
+BA, which the global BA joins once objects carry pose measurements.
+Capabilities of later port slices (DeepSDF shapes, learned detectors,
+sharded BA) raise `NotImplementedError` naming the slice (see ROADMAP.md
+queue A).
 """
 
 from __future__ import annotations
@@ -28,11 +37,17 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core import lie
 from ..core import plane as plane_mod
 from ..core.camera import backproject, intrinsic_matrix
-from ..perception.groundplane import adaptive_inlier_th, estimate_ground_plane_points
+from ..perception.ellipsoid_fit import core_mask, fit_ellipsoid_depth, fit_ellipsoid_points, sample_bbox_depth_points
+from ..perception.groundplane import adaptive_inlier_th, estimate_ground_plane, estimate_ground_plane_points
+from ..perception.manhattan import empty_plane_set, extract_manhattan_planes, update_plane_set
 from ..perception.prior_infer import default_priors, generate_init_guess
+from ..perception.relations import extract_relations, select_support_plane, support_planes_for_objects
+from ..perception.symmetry import estimate_symmetry
 from . import map as mapmod
+from .joint_mapping import joint_ba_step
 from .local_mapping import (
     cull_keyframes,
     fuse_map_points,
@@ -60,6 +75,7 @@ from .objects import (
     empty_objects,
     integrate_keyframe,
     merge_duplicates,
+    refine_objects,
     refine_objects_mono,
 )
 from .place_recognition import bow_signature, query_topk_with_ref
@@ -76,7 +92,6 @@ from .tracking import (
     process_frame_stereo,
 )
 
-_RGBD_OBJECTS = "RGB-D and stereo detections arrive with ROADMAP slice 6 (quadric objects)"
 _LATER = {
     "detector": "slice 8 (learned detectors)",
     "shape_prior": "slice 7 (DeepSDF shapes)",
@@ -104,16 +119,19 @@ class SlamSystem:
     emax: int = 65536
     ba_window: int = 8
     omax: int = 32
-    # Object landmarks from detections (monocular sensor).  Off by default,
-    # where the JAX package's default is on: `run_mono` turns it on when
-    # given detections, as the JAX command line does.
-    enable_objects: bool = False
+    # Object landmarks from the detections passed to track_* (every sensor).
+    enable_objects: bool = True
     enable_loop_closing: bool = True
     # Relocalization against the keyframe snapshots (always maintained).
     enable_relocalization: bool = True
     # Track and relocalize against the frozen map: no keyframes, no BA, no
     # database growth, no automatic reset.
     localization_only: bool = False
+    # RGB-D structure: Manhattan planes, object-plane relations and the
+    # supporting-plane selection in extraction and refinement.
+    enable_structures: bool = True
+    # Reflection-symmetry completion of each object cloud before its fit.
+    enable_symmetry: bool = False
     # Per-label aspect priors of the monocular objects (`AspectPriors`);
     # None is the neutral 1:1.
     aspect_priors: Optional[object] = None
@@ -125,6 +143,8 @@ class SlamSystem:
     loop_state: LoopState = field(init=False)
     objects: ObjectTable = field(init=False)
     ground_plane: Optional[np.ndarray] = field(init=False, default=None)  # world frame (4,)
+    plane_set: object = field(init=False)  # Manhattan planes (`PlaneSet`), world frame
+    relations: object = field(init=False, default=None)  # object-plane `Relations`, or None
     Tcw: np.ndarray = field(init=False)
     velocity: np.ndarray = field(init=False)
     loops_closed: int = 0
@@ -139,6 +159,7 @@ class SlamSystem:
         self._refuse_later()
         self.device = resolve_device(self.device)
         self._sensor = "rgbd"
+        self._pending_detections = self._pending_depth = None
         self._loop_gate = ConsistencyGate()
         self._clear_state()
 
@@ -162,8 +183,9 @@ class SlamSystem:
     def reset(self) -> None:
         """Drop the map, the snapshot store (rebuilt empty at their current
         capacities, so snapshot slot k is again keyframe k), the objects,
-        the ground plane and the monocular reference, and return to the
-        uninitialized state; the next frame re-bootstraps."""
+        the ground plane, the Manhattan planes and relations and the
+        monocular reference, and return to the uninitialized state; the
+        next frame re-bootstraps."""
         self._clear_state()
         self.stats["kf_frames"] = []
         self.stats["resets"] = self.stats.get("resets", 0) + 1
@@ -172,8 +194,11 @@ class SlamSystem:
         self.map_state = mapmod.empty_map(self.kmax, self.nmax, self.emax, self.device)
         self.loop_state = empty_loop_state(self.kmax, device=self.device)
         self.objects = empty_objects(self.omax, device=self.device)
+        self.plane_set = empty_plane_set(8, device=self.device)
+        self.relations = None
         self.ground_plane = None
-        self._gp_inliers = 0
+        self._gp_count = 0  # keyframes fused into the RGB-D / stereo ground plane
+        self._gp_inliers = 0  # support of the monocular ground plane
         self._mono_ref = None
         self._mono_ref_age = 0
         self.Tcw = np.eye(4, dtype=np.float32)
@@ -188,13 +213,19 @@ class SlamSystem:
     # ------------------------------------------------------------------
     def track_rgbd(self, gray, depth, detections=None) -> np.ndarray:
         """Process one RGB-D frame (gray (H, W) uint8/f32, depth (H, W)
-        uint16 PNG units or f32 meters); returns the estimated T_cw."""
-        if detections is not None:
-            raise NotImplementedError(_RGBD_OBJECTS)
+        uint16 PNG units or f32 meters); returns the estimated T_cw.
+        `detections` (dict of "bbox" (D, 4), "label", "prob", "valid",
+        optionally "ellipsoid_cam" and "fit_ok" for measured ellipsoids, or
+        a callable giving one) feed the objects at keyframes when
+        `enable_objects` is on.  The object step reads the depth image as
+        given, as the reference does: a uint16 image stays in PNG units
+        there (ROADMAP queue C)."""
         self._sensor = "rgbd"
+        self._pending_detections = detections
         self._ensure_capacity()
         gray = _to_device(gray, self.device)
         depth = _to_device(depth, self.device)
+        self._pending_depth = depth.to(torch.float32)
         if depth.dtype == torch.int32:  # widened uint16
             depth = depth.to(torch.float32) / self.cfg.depth_png_scale
         if not self.initialized:
@@ -212,10 +243,11 @@ class SlamSystem:
         """Process one rectified stereo pair (gray (H, W) uint8/f32 each):
         features of both images, scanline matching, depth per keypoint,
         then the same tracking, recovery and keyframe policy as RGB-D;
-        returns the estimated T_cw of the left camera."""
-        if detections is not None:
-            raise NotImplementedError(_RGBD_OBJECTS)
+        returns the estimated T_cw of the left camera.  `detections` as for
+        `track_rgbd`; the objects fit from the keypoints in each box."""
         self._sensor = "stereo"
+        self._pending_detections = detections
+        self._pending_depth = None
         self._ensure_capacity()
         gl = _to_device(gray_left, self.device)
         gr = _to_device(gray_right, self.device)
@@ -397,6 +429,8 @@ class SlamSystem:
         self.frames_since_kf = 0
         self.stats["keyframes"] += 1
         self.stats.setdefault("kf_frames", []).append(len(self.trajectory))
+        if self.enable_objects and self._pending_detections is not None:
+            self._process_objects(self._pending_detections, self._pending_depth, frame)
         self._loop_closing(frame, 0)
 
     def _insert_keyframe(self, frame: FrameData, res: TrackResult):
@@ -421,6 +455,15 @@ class SlamSystem:
         self._kf_fresh = True
         self.stats["keyframes"] += 1
         self.stats.setdefault("kf_frames", []).append(len(self.trajectory))
+        if self.enable_objects and self._pending_detections is not None:
+            t0 = time.perf_counter()
+            self._process_objects(self._pending_detections, self._pending_depth, frame)
+            self.stats["obj_ms"].append((time.perf_counter() - t0) * 1e3)
+            # Stereo: the joint camera-point-object BA over the newest keyframes.
+            if self._sensor == "stereo" and int(torch.sum(self.objects.valid)) > 0:
+                self.map_state, self.objects = joint_ba_step(self.map_state, self.objects, self.cfg, self.ba_window)
+                self._sync()
+                self.Tcw = self.map_state.kf_Tcw[kf_id].cpu().numpy()
         self._loop_closing(frame, kf_id)
 
     # ------------------------------------------------------------------
@@ -541,6 +584,117 @@ class SlamSystem:
         self.objects = cull_objects(merge_duplicates(objs), kf_id)
         self._sync()
 
+    def _process_objects(self, detections, depth, frame: FrameData):
+        """The RGB-D and stereo object step of a keyframe: the fused ground
+        plane, the Manhattan planes (RGB-D), one ellipsoid fit per
+        detection, association, integration, relation typing and the
+        support-aware refinement, duplicate merging and culling.  A
+        callable `detections` is evaluated here (its time goes to
+        `stats["det_ms"]`).  The draws come from CPU generators seeded as
+        the reference seeds its keys: keyframe id (ground plane), 300 +
+        keyframe id (Manhattan rounds), 1000 + keyframe id (pixel samples).
+        The host reads the ground plane once per keyframe."""
+        if callable(detections):
+            t_det = time.perf_counter()
+            detections = detections()
+            self.stats.setdefault("det_ms", []).append((time.perf_counter() - t_det) * 1e3)
+        cfg, dev = self.cfg, self.device
+        Tcw = torch.from_numpy(self.Tcw).to(dev)
+        sparse = self._sensor == "stereo"
+        kf_id = int(self.map_state.num_kfs) - 1
+        if sparse:
+            kp_pts = backproject(frame.feats.xy, frame.depth, cfg.intr)
+            kp_ok = frame.depth > 0.0
+        if self.ground_plane is None or self._gp_count < 10:
+            # One keyframe's RANSAC is a noisy estimate: the first keyframes
+            # re-estimate and fuse consistent fits (15 deg, 0.4 m) by a
+            # count-weighted mean.
+            gen = torch.Generator().manual_seed(kf_id)
+            gp = (estimate_ground_plane_points(kp_pts, kp_ok, gen) if sparse
+                  else estimate_ground_plane(depth, cfg.intr, gen))
+            got = torch.cat([plane_mod.transform(gp.plane, lie.inv_se3(Tcw)), gp.ok.to(torch.float32)[None]]).cpu()
+            if bool(got[4]):
+                pi_w_new = got[:4].numpy()
+                pi_w_new = pi_w_new / np.linalg.norm(pi_w_new[:3])
+                if self.ground_plane is None:
+                    self.ground_plane, self._gp_count = pi_w_new, 1
+                elif (float(np.dot(self.ground_plane[:3], pi_w_new[:3])) > 0.966
+                      and abs(float(self.ground_plane[3] - pi_w_new[3])) < 0.4):
+                    k = self._gp_count
+                    fused = (k * self.ground_plane + pi_w_new) / (k + 1)
+                    self.ground_plane, self._gp_count = fused / np.linalg.norm(fused[:3]), k + 1
+            elif self.ground_plane is None:
+                return  # objects wait for a gravity reference
+        pi_w = torch.from_numpy(self.ground_plane).to(dev)
+        pi_cam = plane_mod.transform(pi_w, Tcw)
+        if self.enable_structures and not sparse:
+            self._update_structures(depth, pi_cam, Tcw, kf_id)
+        bbox, label, prob, dvalid = (torch.as_tensor(np.asarray(detections[k]), dtype=dt).to(dev) for k, dt in (
+            ("bbox", torch.float32), ("label", torch.int32), ("prob", torch.float32), ("valid", torch.bool)))
+        gen = torch.Generator().manual_seed(1000 + kf_id)
+        if "ellipsoid_cam" in detections:  # measured ellipsoids (a 3D detector's boxes)
+            fit_e = torch.as_tensor(np.asarray(detections["ellipsoid_cam"]), dtype=torch.float32).to(dev)
+            fit_ok = torch.as_tensor(np.asarray(detections["fit_ok"])).to(dev)
+        else:
+            if sparse:
+                xy = frame.feats.xy[None]
+                in_box = ((xy[..., 0] >= bbox[:, 0:1]) & (xy[..., 0] <= bbox[:, 2:3])
+                          & (xy[..., 1] >= bbox[:, 1:2]) & (xy[..., 1] <= bbox[:, 3:4]))
+                fits = fit_ellipsoid_points(kp_pts.expand(bbox.shape[0], -1, 3), kp_ok & in_box, bbox, pi_cam,
+                                            cfg.intr, min_points=8)
+            elif self.enable_structures or self.enable_symmetry:
+                fits = self._fit_detections_structured(depth, bbox, gen, pi_cam, Tcw)
+            else:
+                fits = fit_ellipsoid_depth(depth, bbox, pi_cam, cfg.intr, gen)
+            fit_e, fit_ok = fits.ellipsoid_cam, fits.ok
+        K = intrinsic_matrix(cfg.intr, dev)
+        objs = advance_dynamic_objects(self.objects, kf_id)
+        assoc = associate_detections(objs, Tcw, K, bbox, label, dvalid)
+        objs = integrate_keyframe(objs, Tcw, bbox, label, prob, dvalid, fit_e, fit_ok & dvalid, assoc, kf_id=kf_id)
+        support_w = None
+        if self.enable_structures:
+            # One vote suffices: SUPPORT already needs bottom contact.
+            pvalid = self.plane_set.valid & (self.plane_set.votes >= 1)
+            self.relations = extract_relations(objs.ellipsoid, objs.valid, self.plane_set.planes, pvalid,
+                                               pi_w[:3] / torch.linalg.vector_norm(pi_w[:3]))
+            support_w = support_planes_for_objects(self.relations, self.plane_set.planes, pvalid, pi_w)
+        objs = refine_objects(objs, K, pi_w, support_planes_w=support_w, img_wh=(cfg.width, cfg.height))
+        self.objects = cull_objects(merge_duplicates(objs), kf_id)
+        self._sync()
+
+    def _update_structures(self, depth, pi_cam, Tcw, kf_id: int):
+        """Manhattan planes of this keyframe's depth (a stride-8 cloud, four
+        RANSAC rounds) vote-merged into the world-frame set."""
+        cfg = self.cfg
+        H, W = depth.shape
+        gy, gx = torch.meshgrid(torch.arange(0, H, 8, dtype=torch.float32, device=depth.device),
+                                torch.arange(0, W, 8, dtype=torch.float32, device=depth.device), indexing="ij")
+        z = depth[gy.long(), gx.long()].reshape(-1)
+        pts = backproject(torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1), z, cfg.intr)
+        planes_c, found = extract_manhattan_planes(pts, (z > 0.1) & (z < 12.0), pi_cam,
+                                                   torch.Generator().manual_seed(300 + kf_id), rounds=4,
+                                                   min_inliers=40)
+        self.plane_set = update_plane_set(self.plane_set, plane_mod.transform(planes_c, lie.inv_se3(Tcw)), found)
+
+    def _fit_detections_structured(self, depth, bbox, gen, pi_cam, Tcw):
+        """Per-detection fits completed down to each point set's supporting
+        plane (one vote suffices here: the just-below gate filters false
+        planes), with optional symmetry completion."""
+        cfg = self.cfg
+        planes_cam = plane_mod.transform(self.plane_set.planes, Tcw)
+        pvalid = self.plane_set.valid & (self.plane_set.votes >= 1)
+        pts, zok = sample_bbox_depth_points(depth, bbox, cfg.intr, gen)
+        core0 = core_mask(pts, zok, pi_cam)
+        sp = (select_support_plane(pts, core0, planes_cam, pvalid, pi_cam) if self.enable_structures
+              else pi_cam.expand(bbox.shape[0], 4))
+        if self.enable_symmetry:
+            S = 256  # the pairwise-chamfer budget
+            sym = estimate_symmetry(pts[:, :S], core0[:, :S], pi_cam[:3] / torch.linalg.vector_norm(pi_cam[:3]))
+            n = sym.plane[:, None, :3]
+            mirrored = pts - 2.0 * (torch.sum(pts * n, dim=-1, keepdim=True) + sym.plane[:, None, 3:4]) * n
+            pts, zok = torch.cat([pts, mirrored], dim=1), torch.cat([zok, core0 & sym.ok[:, None]], dim=1)
+        return fit_ellipsoid_points(pts, zok, bbox, sp, cfg.intr)
+
     def _loop_closing(self, frame: FrameData, kf_id: int, pts_cam=None, pts_ok=None):
         """Snapshot the keyframe (always: relocalization and monocular
         triangulation read the store), then, from keyframe 12 on, loop
@@ -598,17 +752,24 @@ class SlamSystem:
         self.loops_closed += 1
 
     def _dispatch_global_ba(self, iters: int = 10) -> None:
-        """Whole-map point-only BA on this device (the joint and sharded
-        variants raise through `_LATER`)."""
+        """Whole-map BA on this device: joint (cameras, points and objects,
+        `joint_ba_step` over every keyframe slot) when the stereo sensor's
+        objects hold at least two camera-object pose measurements,
+        point-only (`iters` trips) otherwise.  The sharded variants raise
+        through `_LATER` (slice 9)."""
         self._refuse_later()
-        self.map_state = global_ba_step(self.map_state, self.cfg, iters=iters)
+        if (self._sensor == "stereo" and self.enable_objects
+                and int(torch.sum(self.objects.pm_kf >= 0)) >= 2):
+            self.map_state, self.objects = joint_ba_step(self.map_state, self.objects, self.cfg, window=self.kmax)
+        else:
+            self.map_state = global_ba_step(self.map_state, self.cfg, iters=iters)
         self._sync()
 
     # ------------------------------------------------------------------
     def run_global_ba(self, iters: int = 10) -> None:
-        """Full-map point-only optimization outside loop closure (all
-        keyframes, keyframe 0 fixed, and all points), e.g. before saving a
-        map.  The joint and sharded variants belong to later slices."""
+        """Full-map optimization outside loop closure (all keyframes,
+        keyframe 0 fixed, and all points; the objects too when the stereo
+        sensor has their pose measurements), e.g. before saving a map."""
         if int(self.map_state.num_kfs) < 2:
             return
         self._dispatch_global_ba(iters)

@@ -11,7 +11,11 @@ every camera centre within 1 cm of the same run on the CPU (a monocular
 run: the same bootstrap and keyframes, centres within 0.005 gauge units,
 the same objects); relocalization
 on the card picks the CPU run's winner on the same hypothesis draws (inlier
-rows agree but for a few at the chi2 threshold), pose within 1e-3 m.
+rows agree but for a few at the chi2 threshold), pose within 1e-3 m; the
+Sim(3) loop closer's poses and objects within 1e-3 of the CPU's; short
+RGB-D and stereo object runs: the same keyframes, object slots, labels
+(and Manhattan plane slots), object centres within 1 cm; the joint BA's
+dense pose solve within 1e-4 of the CPU's, relative.
 """
 
 import numpy as np
@@ -242,3 +246,139 @@ def test_stereo_pair_extractor_one_launch(gen):
     assert torch.equal(card.u_right.cpu(), cpu.u_right)
     torch.testing.assert_close(card.depth.cpu(), cpu.depth, rtol=1e-5, atol=0)
     assert int((cpu.depth > 0).sum()) > 200
+
+
+def test_sim3_loop_closer_matches_cpu(gen):
+    """tests/test_torch_mono.py's 12-keyframe circle with 2% scale drift per
+    keyframe, closed by `correct_loop(fix_scale=False)` with objects on the
+    card and on the CPU: keyframe poses (similarities) within 1e-3, object
+    ellipsoids within 1e-3, the same validity (25 pose-graph trips, each an
+    f32 Cholesky of a Jacobi-scaled 84x84 system, reduced in another order
+    on the card)."""
+    from qsp_slam_tpu_torch.core import lie
+    from qsp_slam_tpu_torch.slam import map as tmap
+    from qsp_slam_tpu_torch.slam.loop_closing import LoopDetection, correct_loop
+    from qsp_slam_tpu_torch.slam.objects import empty_objects
+
+    K = 12
+    gt = [lie.exp_se3(torch.tensor([np.sin(2 * np.pi * k / K), 0, 1 - np.cos(2 * np.pi * k / K), 0, 0, 0],
+                                   dtype=torch.float32)) for k in range(K)]
+    res = {}
+    for dev in ("cpu", "cuda"):
+        m = tmap.empty_map(kmax=16, nmax=64, emax=256, device=dev)
+        for k in range(K):
+            E = gt[k].clone()
+            E[:3, 3] *= 1.02 ** k
+            m, _ = tmap.add_keyframe(m, E.to(dev))
+        o = empty_objects(4, device=dev)
+        ell = o.ellipsoid.clone()
+        ell[:3] = torch.tensor([[0.5, 0.2, 1.0, 0.1, 0.2, 0.3, 0.2, 0.3, 0.4],
+                                [-0.5, 0.1, 1.5, 0.0, 0.1, 0.0, 0.3, 0.2, 0.2],
+                                [0.2, 0.2, 0.2, 0.0, 0.0, 0.5, 0.1, 0.1, 0.1]], device=dev)
+        obs = o.obs_Tcw.clone()
+        obs[0, 0], obs[1, 0], obs[2, 0] = m.kf_Tcw[3], m.kf_Tcw[11], gt[5].to(dev)
+        valid = torch.zeros(4, dtype=torch.bool, device=dev)
+        valid[:3] = True
+        o = o._replace(ellipsoid=ell, valid=valid, obs_Tcw=obs,
+                       label=torch.tensor([0, 1, 1, -1], dtype=torch.int32, device=dev),
+                       obs_count=torch.tensor([1, 1, 1, 0], dtype=torch.int32, device=dev),
+                       obs_next=torch.tensor([1, 1, 1, 0], dtype=torch.int32, device=dev))
+        det = LoopDetection(found=torch.tensor(True, device=dev), match_kf=torch.tensor(0, dtype=torch.int32,
+                                                                                        device=dev),
+                            T_cur_match=(gt[K - 1] @ torch.linalg.inv(gt[0])).to(dev),
+                            num_inliers=torch.tensor(50, device=dev), score=torch.tensor(0.9, device=dev))
+        res[dev] = correct_loop(m, o, K - 1, det, fix_scale=False, iters=25)
+    (cm, co), (gm, go) = res["cpu"], res["cuda"]
+    torch.testing.assert_close(gm.kf_Tcw.cpu(), cm.kf_Tcw, atol=1e-3, rtol=0)
+    torch.testing.assert_close(go.ellipsoid.cpu(), co.ellipsoid, atol=1e-3, rtol=0)
+    assert torch.equal(go.valid.cpu(), co.valid)
+    err_after = float(torch.linalg.vector_norm(gm.kf_Tcw[K - 1, :3, 3].cpu() - gt[K - 1][:3, 3]))
+    assert err_after < 0.5 * float(torch.linalg.vector_norm(gt[K - 1][:3, 3] * (1.02 ** (K - 1) - 1)))
+
+
+def test_short_rgbd_objects_run_matches_cpu(gen):
+    """Eight RGB-D frames of the table scene with the renderer's detections
+    on the card and on the CPU: the same keyframes, object slots and labels
+    and Manhattan plane slots, object centres within 1 cm."""
+    from qsp_slam_tpu_torch.core import lie
+    from qsp_slam_tpu_torch.data.render import gt_detections, make_scene, render_scene
+
+    cfg = TrackingConfig(orb=OrbConfig(num_features=500))
+    scene = make_scene(num_objects=3, seed=2, num_tables=1, device="cpu")
+    base = lie.exp_se3(torch.tensor([0, 0, 0, 0.35, 0, 0.0]))
+    frames = []
+    for i in range(8):
+        Tcw = lie.exp_se3(torch.tensor([0.04 * i, 0, 0, 0, 0, 0.0])) @ base
+        g, d, _ = render_scene(scene, Tcw, cfg.intr)
+        frames.append((g.numpy(), d.numpy(), {k: v.numpy() for k, v in gt_detections(scene, Tcw, cfg.intr).items()}))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        runs[dev] = SlamSystem(cfg, kmax=16, nmax=2048, emax=16384, ba_window=6, omax=8, device=dev)
+        for g, d, det in frames:
+            runs[dev].track_rgbd(g, d, det)
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert card.stats["kf_frames"] == cpu.stats["kf_frames"]
+    assert torch.equal(card.objects.valid.cpu(), cpu.objects.valid) and int(cpu.objects.valid.sum()) >= 1
+    assert torch.equal(card.objects.label.cpu(), cpu.objects.label)
+    assert torch.equal(card.plane_set.valid.cpu(), cpu.plane_set.valid)
+    live = cpu.objects.valid
+    assert float((card.objects.ellipsoid.cpu()[live, :3] - cpu.objects.ellipsoid[live, :3]).norm(dim=-1).max()) < 0.01
+
+
+def test_short_stereo_joint_run_matches_cpu(gen):
+    """Ten stereo frames of the object scene with detections (local joint BA
+    at keyframes), then the global joint BA, on the card and on the CPU:
+    the same keyframes and object slots, keyframe centres and object
+    centres within 1 cm."""
+    from qsp_slam_tpu_torch.core import lie
+    from qsp_slam_tpu_torch.data.render import gt_detections, make_scene, render_scene
+
+    cfg = TrackingConfig(orb=OrbConfig(num_features=500), baseline=0.12)
+    scene = make_scene(num_objects=3, seed=2, device="cpu")
+    base = lie.exp_se3(torch.tensor([0, 0, 0, 0.44, 0, 0.0]))
+    shift = torch.eye(4)
+    shift[0, 3] = -0.12
+    frames = []
+    for i in range(10):
+        Tcw = lie.exp_se3(torch.tensor([0.045 * i, 0, 0, 0, 0, 0.0])) @ base
+        frames.append((render_scene(scene, Tcw, cfg.intr)[0].numpy(),
+                       render_scene(scene, shift @ Tcw, cfg.intr)[0].numpy(),
+                       {k: v.numpy() for k, v in gt_detections(scene, Tcw, cfg.intr).items()}))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        runs[dev] = SlamSystem(cfg, kmax=16, nmax=2048, emax=16384, ba_window=6, omax=8, enable_loop_closing=False,
+                               device=dev)
+        for gl, gr, det in frames:
+            runs[dev].track_stereo(gl, gr, det)
+        runs[dev].run_global_ba()
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert card.stats["kf_frames"] == cpu.stats["kf_frames"]
+    assert torch.equal(card.objects.valid.cpu(), cpu.objects.valid) and int((cpu.objects.pm_kf >= 0).sum()) >= 2
+    n = int(cpu.map_state.num_kfs)
+    c = {d: -(r.map_state.kf_Tcw[:n, :3, :3].transpose(1, 2) @ r.map_state.kf_Tcw[:n, :3, 3:]).cpu()[..., 0]
+         for d, r in runs.items()}
+    assert float((c["cuda"] - c["cpu"]).norm(dim=-1).max()) < 0.01
+    live = cpu.objects.valid
+    assert float((card.objects.ellipsoid.cpu()[live, :3] - cpu.objects.ellipsoid[live, :3]).norm(dim=-1).max()) < 0.01
+
+
+def test_solve_dense_pose_system_matches_cpu(gen):
+    """The joint BA's dense solve at the global size of the KITTI path
+    (128 keyframes + 32 objects: 960 unknowns), two vertices fixed: the
+    card's Cholesky against the CPU's, 1e-4 relative to the solution's
+    scale; an indefinite system gives NaN on both."""
+    from qsp_slam_tpu_torch.opt.schur import solve_dense_pose_system
+
+    V = 160
+    g = torch.Generator().manual_seed(3)
+    A = torch.randn(6 * V, 6 * V, generator=g)
+    S = A @ A.T / (6 * V) + torch.diag(torch.rand(6 * V, generator=g) * 10 + 0.1)
+    rhs = torch.randn(V, 6, generator=g)
+    fixed = torch.zeros(V, dtype=torch.bool)
+    fixed[[0, 1]] = True
+    cpu = solve_dense_pose_system(S.reshape(V, 6, V, 6), rhs, fixed)
+    card = solve_dense_pose_system(S.cuda().reshape(V, 6, V, 6), rhs.cuda(), fixed.cuda()).cpu()
+    assert float((card - cpu).abs().max()) <= 1e-4 * float(cpu.abs().max())
+    assert float(card[fixed].abs().max()) == 0.0
+    bad = solve_dense_pose_system(-S.cuda().reshape(V, 6, V, 6), rhs.cuda(), fixed.cuda())
+    assert bool(torch.isnan(bad).all())

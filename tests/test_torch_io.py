@@ -222,18 +222,23 @@ class TestMakeTum:
             np.testing.assert_array_equal(got.normals.numpy(), np.asarray(ref.normals))
 
     def test_objects_wait_for_slice_6(self, tmp_path):
-        """Fabricated objects and detections come with the monocular object
-        path (tests/test_torch_objects.py holds them to the reference);
-        table slabs and RGB-D detections still wait for slice 6."""
+        """Fabricated objects and detections (tests/test_torch_objects.py
+        holds them to the reference) feed `run_tum --detections`, which
+        spawns objects from the first frame's depth; table scenes build."""
         tmake.main([str(tmp_path), "--frames", "1", "--cpu", "--objects", "2", "--detections"])
         assert (tmp_path / "detections" / "0.npz").exists()
         from qsp_slam_tpu_torch import run_tum
         from qsp_slam_tpu_torch.data.render import make_scene
 
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            make_scene(num_tables=1, device="cpu")
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            run_tum.main([str(tmp_path), "--detections", str(tmp_path / "detections"), "--cpu"])
+        scene = make_scene(num_tables=1, device="cpu")
+        assert scene.slabs.shape == (1, 5) and float(scene.ellipsoids[0, 1] + scene.ellipsoids[0, 7]) == \
+            pytest.approx(float(scene.slabs[0, 1]), abs=1e-5)  # object 0 rests on the table
+        (tmp_path / "c.yaml").write_text("ORBextractor.nFeatures: 500\n")
+        out = run_tum.main([str(tmp_path), "--detections", str(tmp_path / "detections"), "--config",
+                            str(tmp_path / "c.yaml"), "--save-dir", str(tmp_path / "out"), "--cpu"])
+        assert out["frames"] == 0 and out["num_objects"] >= 1
+        z = tio.load_map(str(tmp_path / "out" / "map.npz"))
+        assert int(z["obj_valid"].sum()) == out["num_objects"]
 
 
 class TestRunTum:
@@ -266,9 +271,12 @@ class TestRunTum:
     @pytest.mark.parametrize("flag", [["--detections", "d"], ["--mesh", "2"], ["--detector", "w.npz"],
                                       ["--save-frames", "f"]])
     def test_later_slices_refuse(self, flag):
+        """Later slices refuse; `--detections` is taken and the run goes on
+        to read the sequence (`tests/test_torch_structures.py` runs it)."""
         from qsp_slam_tpu_torch import run_tum
 
-        with pytest.raises(NotImplementedError, match="slice"):
+        with pytest.raises(FileNotFoundError if flag[0] == "--detections" else NotImplementedError,
+                           match="rgb.txt" if flag[0] == "--detections" else "slice"):
             run_tum.main(["unused", *flag, "--cpu"])
 
 
@@ -339,12 +347,20 @@ class TestCheckpoint:
             jmigrate(dict(old))
 
     def test_later_state_refuses(self, tmp_path):
-        from qsp_slam_tpu_torch.slam.checkpoint import load_checkpoint
+        """Manhattan planes, relations and the fused ground plane's count
+        resume (they refused before the RGB-D object path was ported)."""
+        from qsp_slam_tpu_torch.perception.relations import Relations
+        from qsp_slam_tpu_torch.slam.checkpoint import load_checkpoint, save_checkpoint
 
         port = SlamSystem(TrackingConfig(), device="cpu", kmax=2, nmax=64, emax=128)
-        for extra, slice_ in ((dict(**{"plane.valid": np.array([False, True])}), "slice 6"),
-                              (dict(**{"rel.kind": np.zeros(3)}), "slice 6")):
-            p = str(tmp_path / "c.npz")
-            np.savez(p, **extra)
-            with pytest.raises(NotImplementedError, match=slice_):
-                load_checkpoint(p, port)
+        port.plane_set = port.plane_set._replace(valid=torch.tensor([False, True] + [False] * 6),
+                                                 votes=torch.arange(8, dtype=torch.int32))
+        port.relations = Relations(kind=torch.ones((32, 8), dtype=torch.int32), distance=torch.full((32, 8), 0.5))
+        port._gp_count = 3
+        p = str(tmp_path / "c.npz")
+        save_checkpoint(p, port)
+        back = SlamSystem(TrackingConfig(), device="cpu", kmax=2, nmax=64, emax=128)
+        load_checkpoint(p, back)
+        for a, b in zip(back.plane_set + back.relations, port.plane_set + port.relations):
+            assert torch.equal(a, b)
+        assert back._gp_count == 3

@@ -487,12 +487,18 @@ def test_mono_localization_only_freezes_map(grays):
 
 
 def test_rgbd_and_stereo_detections_wait_for_slice_6():
-    sysm = SlamSystem(CFG, device="cpu", enable_objects=True, **SYS)
+    """RGB-D and stereo detections are taken (they refused before their
+    object path was ported): on blank frames no ground plane is found, so
+    the objects wait and the table stays empty."""
     det = {"bbox": np.zeros((1, 4), np.float32), "label": np.zeros(1, np.int32),
            "prob": np.ones(1, np.float32), "valid": np.ones(1, bool)}
     g = np.zeros((480, 640), np.uint8)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        sysm.track_rgbd(g, np.zeros((480, 640), np.uint16), det)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        sysm.track_stereo(g, g, det)
-    assert isinstance(sysm.objects, tobj.ObjectTable)
+    for track in ("rgbd", "stereo"):
+        sysm = SlamSystem(CFG, device="cpu", **SYS)
+        assert sysm.enable_objects  # the default, as in the reference
+        if track == "rgbd":
+            sysm.track_rgbd(g, np.zeros((480, 640), np.uint16), det)
+        else:
+            sysm.track_stereo(g, g, det)
+        assert sysm.initialized and sysm.ground_plane is None and sysm._gp_count == 0
+        assert isinstance(sysm.objects, tobj.ObjectTable) and not bool(sysm.objects.valid.any())

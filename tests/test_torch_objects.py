@@ -405,8 +405,10 @@ def test_gt_detections_and_scene(rng):
         for k in ("label", "valid", "prob", "mask"):
             np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]), err_msg=k)
         assert int(got["valid"].sum()) >= 1
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        trender.make_scene(num_tables=1, device="cpu")
+    jt = jrender.make_scene(num_objects=3, seed=2, num_tables=1, table_height=0.7)
+    t = trender.make_scene(num_objects=3, seed=2, num_tables=1, table_height=0.7, device="cpu")
+    for name in ("ellipsoids", "labels", "albedo", "slabs", "slab_albedo"):
+        np.testing.assert_array_equal(getattr(t, name).numpy(), np.asarray(getattr(jt, name)), err_msg=name)
 
 
 def test_save_map_and_export_with_objects(tmp_path, rng):
