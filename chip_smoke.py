@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--shape-dump FILE]
 
 Phases (any failure exits non-zero and prints no result line):
   1. card name and power limit (nvidia-smi); build every kernel from
@@ -103,13 +103,43 @@ Phases (any failure exits non-zero and prints no result line):
   K2 at the monocular shapes: exactly equal to plain with planted rows at
   (1000, 1000) bootstrap, (384, 1000) keyframe triangulation and
   (8192, 1000) tracking, each timed.
-Paths 4, 7, 8, 9, 10, 11, 13 and 14 each zero the launch counters just
+ 16. the DeepSDF shape path at the reference's width (code 64, hidden 512,
+     8 layers): the toy decoder trained on the card (600 Adam steps, mean
+     |SDF error| < 0.03 over its 12 ellipsoids), then
+     `SlamSystem(shape_prior=...)` through 20 frames of
+     `tests/test_shape_mapping.py`'s scene (three objects seen 25 degrees
+     down, 4 cm per frame) at 640x480 and 4000 features with the
+     renderer's detections and instance masks, omax 32: ATE < 0.05 m, >= 1
+     reconstructed object, every reconstructed object's true surface within
+     SHAPE_SDF of its decoded zero set (median |SDF| through Tow_shape), K1
+     once per frame.  Each shape step is timed by the host clock around a
+     synchronise (gather and LM) with its due objects, hypotheses, FLOP
+     counted from the shapes and the share of the f32 bound, and its LM's
+     peak memory held under the chunking's estimate; the peak device
+     memory; then 64^3 meshes of the reconstructed codes (empty: at this
+     width the LM reaches a shape with no inside, as the reference does
+     on the same inputs, ROADMAP queue C) and of a family code (>= 100
+     faces), `render_objects_png` of the map, and tests/test_shape.py's
+     one object from a zero code (logged) and from its family code (an
+     inside, >= 100 faces, surface within SHAPE_SDF);
+ 17. the shape scene's first 10 frames at 500 features with a toy-width
+     decoder (16/96/6) on the card and on the CPU: the same keyframes and
+     reconstructed slots, each run's shapes with an inside and within
+     SHAPE_SDF of their true surface; each shape step's input and result
+     gaps are printed, its starting frames must agree within
+     SHAPE_INIT_GAP, and one LM trip on the CPU run's inputs card vs CPU
+     within SHAPE_GAP (eight trips carry the start's gap into the codes:
+     PERF.md section 6);
+ 18. `run_synthetic.main(["30", "--objects"])` at its defaults: ATE <
+     0.05 m, >= 1 reconstructed shape, K1 once per frame.
+Paths 4, 7, 8, 9, 10, 11, 13, 14, 16 and 18 each zero the launch counters just
 before and read them just after.  With `--profile DIR`: torch.profiler tables in DIR
 of main-path frames 12-19, of KITTI-drive frames 12-19 (phase 9's
 configuration) and of monocular frames 12-19 (phase 11's), the device's busy share of each window, each kernel's
 device time per launch there, and each kernel's device time per call alone
-at the phase-6, recovery, stereo and monocular shapes, and `profile_objects.txt`: the object step of one
-warm RGB-D keyframe and one local joint BA call.  Then a `{"kernels": [...]}` line, the
+at the phase-6, recovery, stereo and monocular shapes, `profile_objects.txt`: the object step of one
+warm RGB-D keyframe and one local joint BA call, and `profile_shape.txt`: one full-width shape step of
+phase 16.  Then a `{"kernels": [...]}` line, the
 card line again, and as the last line `{"ok": true, "device": {...}}`.
 """
 
@@ -128,7 +158,7 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from qsp_slam_tpu_torch import run_kitti, run_mono, run_tum  # noqa: E402
+from qsp_slam_tpu_torch import run_kitti, run_mono, run_synthetic, run_tum  # noqa: E402
 from qsp_slam_tpu_torch.core import lie, quadric  # noqa: E402
 from qsp_slam_tpu_torch.data import make_kitti, make_tum, native_loader  # noqa: E402
 from qsp_slam_tpu_torch.data.make_kitti import drive_scene  # noqa: E402
@@ -148,6 +178,15 @@ from qsp_slam_tpu_torch.eval.objects import evaluate_objects  # noqa: E402
 from qsp_slam_tpu_torch.frontend.matcher import pack_pm  # noqa: E402
 from qsp_slam_tpu_torch.frontend.orb import OrbConfig  # noqa: E402
 from qsp_slam_tpu_torch.frontend.pyramid import PyramidConfig, build_pyramid  # noqa: E402
+from qsp_slam_tpu_torch.models.deepsdf import (  # noqa: E402
+    DeepSDFConfig,
+    decode_sdf,
+    ellipsoid_sdf,
+    macs_per_point,
+    train_toy_decoder,
+)
+from qsp_slam_tpu_torch.models.mesh import extract_mesh_from_code  # noqa: E402
+from qsp_slam_tpu_torch.models.shape_opt import reconstruct_object  # noqa: E402
 from qsp_slam_tpu_torch.ops import build  # noqa: E402
 from qsp_slam_tpu_torch.ops.fast_nms import (  # noqa: E402
     fast_score_nms,
@@ -159,6 +198,13 @@ from qsp_slam_tpu_torch.ops.hamming import hamming_packed, hamming_packed_plain 
 from qsp_slam_tpu_torch.slam import system as system_mod  # noqa: E402
 from qsp_slam_tpu_torch.slam.system import SlamSystem  # noqa: E402
 from qsp_slam_tpu_torch.slam.tracking import TrackingConfig, process_frame  # noqa: E402
+from qsp_slam_tpu_torch.slam.shape_mapping import (  # noqa: E402
+    RENDER_SAMPLES,
+    ShapeInputs,
+    chunk_size,
+    hypothesis_bytes,
+)
+from qsp_slam_tpu_torch.viz.object_render import render_objects_png  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM peak outside the tensor cores
@@ -184,6 +230,15 @@ MONO_GAP = 0.005  # phase 12 centre gate, mono gauge units
 # carries 2e-4 into 1e-2.
 MONO_STEP_GAPS = {"bootstrap T_cw2": 1e-4, "bootstrap pts_w": 1e-2, "keyframes after local BA": 1e-3}
 KERNEL_NAMES = ("fast_score_nms_pyramid_kernel", "hamming_mma_kernel")  # as the profiler names them
+SHAPE_FRAMES, SHAPE_F, SHAPE_SMALL = 20, 4000, 10  # phase 16 (tests/test_shape_mapping.py's scene); phase 17
+SHAPE_SDF = 0.12  # phase 16: median |SDF| of a reconstructed object's true surface (tests/test_shape_mapping.py)
+SHAPE_GAP = 1e-3  # phase 17: codes and Tow_shape after one LM trip on the same inputs, card vs CPU
+# Phase 17: the shape step's starting frames card vs CPU.  They come from
+# the ellipsoids, whose Euler angles part by up to 7.7e-3 rad after two
+# observations (centres 2.4e-4 m), which moved T_oc_init by 0.0267 on the
+# H100; the gate is about twice that.
+SHAPE_INIT_GAP = 0.05
+TOY_DEC = DeepSDFConfig(code_dim=16, hidden=96, num_layers=6, latent_in=(3,))  # the JAX tests' toy width
 
 
 def log(*a):
@@ -968,6 +1023,388 @@ def objects_card_vs_cpu(tmp: str) -> dict:
     return res
 
 
+class ShapeSteps:
+    """The shape step of every keyframe, installed over the facade's names
+    (`gather_shape_inputs`, `reconstruct_due_objects`): host-clock ms of
+    each part around a synchronise, the due objects and hypotheses, the
+    LM's peak device memory above what was allocated before it, and CPU
+    copies of the inputs and of the table before and after the LM.
+    `peak` keeps the device's peak from before each LM's reset."""
+
+    NAMES = ("gather_shape_inputs", "reconstruct_due_objects")
+
+    def __init__(self, frame_of=lambda: None):
+        self.steps, self.frame_of, self.peak = [], frame_of, 0
+        self._saved = {n: getattr(system_mod, n) for n in self.NAMES}
+
+    def __enter__(self):
+        gather, lm = (self._saved[n] for n in self.NAMES)
+
+        def sync():
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+
+        def timed_gather(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            out = gather(*a, **k)
+            sync()
+            self.steps.append({"frame": self.frame_of(), "gather_ms": (time.perf_counter() - t0) * 1e3,
+                               "due": int(out.due.sum()),
+                               "inputs": ShapeInputs(*(x.cpu() for x in out))})
+            return out
+
+        def timed_lm(table, inputs, params, dec_cfg, Tcw, opt_cfg):
+            on_card = table.code.is_cuda
+            sync()
+            if on_card:
+                self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = lm(table, inputs, params, dec_cfg, Tcw, opt_cfg)
+            sync()
+            st = self.steps[-1]
+            st.update(lm_ms=(time.perf_counter() - t0) * 1e3, hyps=st["due"] * max(1, opt_cfg.num_flips),
+                      lm_peak_bytes=torch.cuda.max_memory_allocated() - base if on_card else 0,
+                      args=(table, inputs, params, dec_cfg, Tcw, opt_cfg), Tcw=Tcw.cpu(),
+                      before={k: getattr(table, k).cpu() for k in ("code", "Tow_shape", "shape_ok")},
+                      after={k: getattr(out, k).cpu() for k in ("code", "Tow_shape", "shape_ok")})
+            return out
+
+        system_mod.gather_shape_inputs, system_mod.reconstruct_due_objects = timed_gather, timed_lm
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._saved.items():
+            setattr(system_mod, n, fn)
+
+
+def shape_flop(st: dict) -> float:
+    """FLOP of one shape step's LM, counted from its shapes: per hypothesis
+    the starting cost and, per trip, the primal, the 7 + C tangents and the
+    trial cost, each one decoder pass over the P surface points and the
+    R x 32 render samples."""
+    if not st["due"]:
+        return 0.0
+    _, inputs, _, dec_cfg, _, opt_cfg = st["args"]
+    points = inputs.pts_cam.shape[1] + inputs.rays.shape[1] * RENDER_SAMPLES
+    passes = opt_cfg.iters * (7 + dec_cfg.code_dim + 2) + 1
+    return float(st["hyps"] * passes * points * 2 * macs_per_point(dec_cfg))
+
+
+def shape_frames(n: int) -> tuple:
+    """tests/test_shape_mapping.py's scene (seed 2, three objects) 25
+    degrees down on a lateral track of 4 cm per frame, rendered on the card
+    at 640x480: numpy gray and depth, the renderer's detections with
+    instance masks, the ground-truth T_cw and the scene's truth in the
+    first camera's frame."""
+    cfg = TrackingConfig()
+    scene = make_scene(num_objects=3, seed=2, device="cuda")
+    base = lie.exp_se3(torch.tensor([0, 0, 0, 0.44, 0, 0], dtype=torch.float32))
+    frames, gt = [], []
+    for i in range(n):
+        Tcw = (lie.exp_se3(torch.tensor([0.04 * i, 0, 0, 0, 0, 0], dtype=torch.float32)) @ base).numpy()
+        g, d, inst = render_scene(scene, Tcw, cfg.intr)
+        det = gt_detections(scene, Tcw, cfg.intr, instance=inst)
+        frames.append((g.cpu().numpy(), d.cpu().numpy(), {k: v.cpu().numpy() for k, v in det.items()}))
+        gt.append(Tcw)
+    truth = quadric.transform_ellipsoid(scene.ellipsoids.cpu(), base[None]).numpy()
+    return frames, np.stack(gt), truth
+
+
+def surface_sdf(sysm, params, dec_cfg, truth) -> dict:
+    """Per reconstructed object: the median |SDF| of 200 points of its
+    nearest true ellipsoid's surface mapped through Tow_shape
+    (tests/test_shape_mapping.py's check)."""
+    out = {}
+    objs = sysm.objects
+    for o in torch.nonzero((objs.valid & objs.shape_ok).cpu())[:, 0].tolist():
+        e = objs.ellipsoid[o].cpu().numpy()
+        j = int(np.linalg.norm(truth[:, :3] - e[:3], axis=1).argmin())
+        d = np.random.default_rng(o).normal(size=(200, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        S = quadric.similarity_transform(torch.from_numpy(truth[j])).numpy()
+        pts = torch.from_numpy((d @ S[:3, :3].T + S[:3, 3]).astype(np.float32)).to(objs.code.device)
+        sdf = decode_sdf(params, dec_cfg, objs.code[o], lie.transform_points(objs.Tow_shape[o], pts))
+        out[o] = float(sdf.abs().median())
+    return out
+
+
+def inside_min(params, dec_cfg, code) -> float:
+    """The SDF's minimum over 4096 points of the decoder's cube (below
+    zero: the shape has an inside)."""
+    cube = (2.0 * torch.rand(4096, 3, generator=torch.Generator().manual_seed(1)) - 1.0).to(code.device)
+    return float(decode_sdf(params, dec_cfg, code, cube).min())
+
+
+def inside(objs, params, dec_cfg) -> dict:
+    """`inside_min` of every reconstructed object."""
+    return {o: inside_min(params, dec_cfg, objs.code[o])
+            for o in torch.nonzero((objs.valid & objs.shape_ok).cpu())[:, 0].tolist()}
+
+
+def single_object_problem(halves) -> tuple:
+    """tests/test_shape.py's problem, drawn from a CPU generator: family
+    shape 1's surface 1.8 m ahead at scale 0.35 with 2 mm noise, 256
+    points with their rays and depths, and the true frame perturbed by
+    (0.06, -0.04, 0.08) m, (0.05, -0.08, 0.04) rad and a scale of e^0.1.
+    -> (T_init, pts, ok, rays, depth) on the CPU."""
+    gen = torch.Generator().manual_seed(2)
+    T_co = lie.exp_se3(torch.tensor([0.1, -0.05, 1.8, 0.0, 0.5, 0.0]))
+    d = torch.randn(256, 3, generator=gen)
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    sR = T_co[:3, :3] * 0.35
+    pts = (d * halves[1].cpu()) @ sR.T + T_co[:3, 3] + 0.002 * torch.randn(256, 3, generator=gen)
+    T_gt = lie.inv_sim3(lie.rt_to_se3(sR, T_co[:3, 3]))
+    T0 = lie.exp_sim3(torch.tensor([0.06, -0.04, 0.08, 0.05, -0.08, 0.04, 0.1])) @ T_gt
+    return T0, pts, torch.ones(256, dtype=torch.bool), pts / pts[:, 2:3], pts[:, 2]
+
+
+def shape_single_object(params, dec_cfg, codes, halves) -> dict:
+    """`single_object_problem` at the decoder's width on the card, eight
+    LM trips from two starts: a zero code (the first shape step of an
+    object) and the observed shape's family code (a later step, which
+    starts from the object's code).  From the zero code this decoder's
+    LM reaches a shape with no inside, as the JAX package does on the
+    same problem and decoder (ROADMAP queue C); from the family code the
+    shape must keep an inside (a mesh) with its surface on the points."""
+    T0, pts, ok, rays, depth = (x.cuda() for x in single_object_problem(halves))
+    out = {}
+    for name, code in (("zero code", torch.zeros_like(codes[1])), ("family code", codes[1])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = reconstruct_object(params, dec_cfg, T0, code, pts, ok, rays, depth, ok)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        mesh = extract_mesh_from_code(params, dec_cfg, res.code, resolution=64)
+        surface = decode_sdf(params, dec_cfg, res.code, lie.transform_points(res.T_oc, pts))
+        out[name] = {"ms": ms, "is_good": bool(res.is_good), "cost": float(res.cost),
+                     "code_norm": float(res.code.norm()), "sdf_min": inside_min(params, dec_cfg, res.code),
+                     "surface_median": float(surface.abs().median()), "faces": len(mesh.faces)}
+    log(f"phase 16 one object at {tuple(dec_cfg)} (tests/test_shape.py's problem, 8 trips): {out}")
+    warm = out["family code"]
+    if not (warm["is_good"] and warm["sdf_min"] < 0.0 and warm["faces"] >= 100
+            and warm["surface_median"] < SHAPE_SDF):
+        raise AssertionError(f"the full-width LM's shape has no inside or misses the surface: {out}")
+    return out
+
+
+def shape_path(tmp: str, prof: Path | None, dump: str | None = None) -> dict:
+    """Phase 16: the toy decoder trained on the card at the reference's
+    width, then `SlamSystem(shape_prior=...)` through 20 frames of the
+    shape scene at 4000 features, every shape step timed and its peak
+    memory held under the chunking's estimate; a mesh and the object
+    render from a reconstructed code.  With `dump`, the first shape step
+    that has due objects is saved there for `tools/shape_step_reference.py`."""
+    dec = DeepSDFConfig()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, codes, halves = train_toy_decoder(0, dec, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    xyz = (2.0 * torch.rand(512, 3, generator=torch.Generator().manual_seed(5)) - 1.0).cuda()
+    fit = [float((decode_sdf(params, dec, codes[i], xyz)
+                  - torch.clamp(ellipsoid_sdf(xyz, halves[i]), -0.3, 0.3)).abs().mean()) for i in range(len(codes))]
+    log(f"phase 16 toy decoder at {tuple(dec)} trained on the card: 600 Adam steps of 512 points in {train_s:.2f} s, "
+        f"mean |SDF error| {np.mean(fit):.5f} over {len(fit)} shapes")
+    if not np.mean(fit) < 0.03:
+        raise AssertionError(f"the full-width toy decoder does not fit its family: {fit}")
+
+    frames, gt, truth = shape_frames(SHAPE_FRAMES)
+    cfg = TrackingConfig(orb=OrbConfig(num_features=SHAPE_F))
+    sysm = SlamSystem(cfg, shape_prior=(params, dec))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with FrameTimes("track_rgbd") as ft, ShapeSteps(lambda: len(ft.ms)) as ss:
+        t0 = time.perf_counter()
+        for g, d, det in frames:
+            sysm.track_rgbd(g, d, det)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    peak = max(ss.peak, torch.cuda.max_memory_allocated())
+    ate = ate_rmse(np.stack(sysm.trajectory), gt)
+    sdf = surface_sdf(sysm, params, dec, truth)
+    steps = [{"kf_frame": st["frame"], "ms": st["gather_ms"] + st["lm_ms"], "gather_ms": st["gather_ms"],
+              "lm_ms": st["lm_ms"], "due": st["due"], "hyps": st["hyps"], "tflop": shape_flop(st) / 1e12,
+              "lm_peak_bytes": st["lm_peak_bytes"]}
+             for st in ss.steps]
+    # The LM's largest chunk of hypotheses and the chunking's estimate for it.
+    n_pts, n_rays = ss.steps[0]["inputs"].pts_cam.shape[1], ss.steps[0]["inputs"].rays.shape[1]
+    per_hyp = hypothesis_bytes(dec, n_pts, n_rays)
+    chunk = chunk_size(dec, n_pts, n_rays, torch.device("cuda"))
+    busy = [st for st in steps if st["due"]]
+    busy_steps = [st for st in ss.steps if st["due"]]
+    per_obj = [st["lm_ms"] / st["due"] for st in busy]
+    bound_ms = [st["tflop"] * 1e12 / FP32_OPS_PER_S * 1e3 for st in busy]
+    res = {"train_s": train_s, "fit_err": float(np.mean(fit)), "ate_rmse_m": ate, "kf_frames": sysm.stats["kf_frames"],
+           "ms_per_frame_end_to_end": wall_ms / SHAPE_FRAMES, "track_ms_median": float(np.median(ft.ms[1:])),
+           "steps": steps, "ms_per_due_object": per_obj, "bound_ms": bound_ms,
+           "bound_share": [b / st["lm_ms"] for b, st in zip(bound_ms, busy)], "max_memory_bytes": peak,
+           "shape_ok": sdf, "objects": int(sysm.objects.valid.sum()), "launches": counts}
+    log(f"phase 16 shape drive at {tuple(dec)}: {SHAPE_FRAMES} frames at 640x480, {SHAPE_F} features, omax "
+        f"{sysm.omax}: ATE {ate:.5f} m, keyframes at {sysm.stats['kf_frames']}, objects {res['objects']}, "
+        f"reconstructed {sorted(sdf)} with median |SDF| of the true surface {[round(v, 4) for v in sdf.values()]}; "
+        f"{res['ms_per_frame_end_to_end']:.1f} ms/frame end to end, median tracked frame {res['track_ms_median']:.1f} "
+        f"ms; peak device memory {peak / 2**30:.2f} GiB; launches {counts}")
+    for st in steps:
+        bound = st["tflop"] * 1e12 / FP32_OPS_PER_S * 1e3
+        log(f"  shape step at frame {st['kf_frame']}: {st['ms']:.1f} ms (gather {st['gather_ms']:.1f}, LM "
+            f"{st['lm_ms']:.1f}), {st['due']} due objects, "
+            f"{st['hyps']} hypotheses, {st['tflop']:.2f} TFLOP, f32 bound {bound:.1f} ms"
+            + (f" ({100 * bound / st['lm_ms']:.1f}% of the LM's time); LM peak {st['lm_peak_bytes'] / 1e9:.3f} GB "
+               f"above its start for chunks of up to {min(chunk, st['hyps'])} hypotheses "
+               f"({st['lm_peak_bytes'] / 1e9 / min(chunk, st['hyps']):.4f} GB each, estimate {per_hyp / 1e9:.4f})"
+               if st["due"] else ""))
+    if any(st["lm_peak_bytes"] > min(chunk, st["hyps"]) * per_hyp for st in busy):
+        raise AssertionError(f"a shape step's memory exceeds the chunking's estimate of {per_hyp} B per hypothesis")
+    if dump:
+        st = busy_steps[0]
+        table, inputs, params_, _, Tcw, opt = st["args"]
+        torch.save({"params": {k: {n: t.cpu() for n, t in p.items()} for k, p in params_.items()}, "truth": truth,
+                    "codes": codes.cpu(), "halves": halves.cpu(),
+                    "steps": [{"frame": st["frame"], "inputs": ShapeInputs(*(x.cpu() for x in inputs)),
+                               "table": {k: getattr(table, k).cpu() for k in table._fields}, "Tcw": Tcw.cpu(),
+                               "after": st["after"], "opt": tuple(opt)}]}, dump)
+        log(f"phase 16 shape step at frame {st['frame']} saved to {dump}")
+    if not (ate < 0.05 and sdf and max(sdf.values()) < SHAPE_SDF):
+        raise AssertionError(f"shape drive failed: ATE {ate}, reconstructed {sdf}")
+    if counts["fast_nms"] != SHAPE_FRAMES:
+        raise AssertionError(f"shape drive launches: {counts}")
+
+    # Meshes of every reconstructed code and of a trained family code.
+    meshes = {}
+    for name, code in [(f"object {o}", sysm.objects.code[o]) for o in sdf] + [("family shape 0", codes[0])]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh = extract_mesh_from_code(params, dec, code, resolution=64)
+        ms = (time.perf_counter() - t0) * 1e3
+        meshes[name] = {"ms": ms, "vertices": len(mesh.vertices), "faces": len(mesh.faces),
+                        "sdf_min": inside_min(params, dec, code), "code_norm": float(code.norm())}
+    res["meshes"] = meshes
+    png = os.path.join(tmp, "objects_render.png")
+    t0 = time.perf_counter()
+    img = render_objects_png(png, sysm.objects, sysm.Tcw, cfg.intr, cfg.height, cfg.width, gray=frames[-1][0],
+                             shape_prior=sysm.shape_prior)
+    res["render_ms"] = (time.perf_counter() - t0) * 1e3
+    with open(png, "rb") as f:
+        head = f.read(8)
+    log(f"phase 16 meshes at 64^3 (extract_mesh_from_code; SDF minimum on 4096 points of the cube, code norm): "
+        f"{meshes}; render_objects_png {img.shape} in {res['render_ms']:.1f} ms")
+    if head != b"\x89PNG\r\n\x1a\n" or meshes["family shape 0"]["faces"] < 100:
+        raise AssertionError("the mesh of a family code or the object render failed")
+    res["one_object"] = shape_single_object(params, dec, codes, halves)
+    if prof:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        last = next(st for st in reversed(ss.steps) if st["due"])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+            t0 = time.perf_counter()
+            system_mod.reconstruct_due_objects(*last["args"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        events = pr.key_averages()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        busy_us = sum(self_dev_us(e) for e in kernels)
+        gemm_us = sum(self_dev_us(e) for e in kernels if "gemm" in e.key.lower())
+        (prof / "profile_shape.txt").write_text(events.table(sort_by="cuda_time_total", row_limit=40))
+        res["profile"] = {"ms": ms, "device_busy_ms": busy_us / 1e3, "gemm_ms": gemm_us / 1e3,
+                          "kernel_launches": sum(e.count for e in kernels)}
+        log(f"profile of one full-width shape step ({last['due']} due objects): {ms:.1f} ms under the profiler, "
+            f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / 1e3 / ms:.1f}%), of which GEMM kernels "
+            f"{gemm_us / 1e3:.1f} ms ({last['hyps']} hypotheses: {shape_flop(last) / gemm_us / 1e6:.1f} TFLOP/s "
+            f"over the GEMM time); {res['profile']['kernel_launches']} kernel launches")
+    return res
+
+
+def shape_card_vs_cpu(frames: list, truth) -> dict:
+    """Phase 17: the shape scene's first 10 frames at 500 features with the
+    toy-width decoder, on the card and on the CPU: the same keyframes and
+    `shape_ok` slots, each run's reconstructed objects with an inside and
+    their true surfaces within SHAPE_SDF; each shape step's inputs and
+    results compared, its starting frames within SHAPE_INIT_GAP; then one
+    LM trip of every step on the CPU run's inputs, card vs CPU."""
+    params = train_toy_decoder(0, TOY_DEC, num_shapes=8, steps=400, device="cpu")[0]
+    on = {"cpu": params, "cuda": {k: {n: t.cuda() for n, t in p.items()} for k, p in params.items()}}
+    cfg = TrackingConfig(orb=OrbConfig(num_features=500))
+    runs, steps = {}, {}
+    for dev in ("cuda", "cpu"):
+        with ShapeSteps() as ss:
+            runs[dev] = SlamSystem(cfg, shape_prior=(on[dev], TOY_DEC), device=dev)
+            for g, d, det in frames[:SHAPE_SMALL]:
+                runs[dev].track_rgbd(g, d, det)
+        steps[dev] = ss.steps
+    kfs = (runs["cuda"].stats["kf_frames"], runs["cpu"].stats["kf_frames"])
+    ok = {dev: (r.objects.valid & r.objects.shape_ok).cpu().numpy() for dev, r in runs.items()}
+    res = {"kf_frames": kfs, "shape_ok": {d: np.nonzero(v)[0].tolist() for d, v in ok.items()}, "steps": [],
+           "surface": {d: surface_sdf(r, on[d], TOY_DEC, truth) for d, r in runs.items()},
+           "sdf_min": {d: inside(r.objects, on[d], TOY_DEC) for d, r in runs.items()}}
+    for a, b in zip(steps["cuda"], steps["cpu"]):
+        due = b["inputs"].due.numpy()
+        gap = {"due": int(due.sum())}
+        if due.any():
+            r, q = a["inputs"].rays.numpy()[due], b["inputs"].rays.numpy()[due]
+            same = np.all(np.abs(r - q) < 1e-4, axis=-1)
+            gap["same_pixels"] = float(same.mean())
+            gap["points"] = float(np.abs(a["inputs"].pts_cam.numpy()[due][same]
+                                         - b["inputs"].pts_cam.numpy()[due][same]).max(initial=0.0))
+            gap["T_oc_init"] = float((a["inputs"].T_oc_init - b["inputs"].T_oc_init)[due].abs().max())
+            e = (a["args"][0].ellipsoid.cpu() - b["args"][0].ellipsoid)[due].abs()
+            gap["ellipsoid"] = {"centre": float(e[:, :3].max()), "euler": float(e[:, 3:6].max()),
+                                "half_axes": float(e[:, 6:9].max())}
+            for k in ("code", "Tow_shape"):
+                gap[k] = float((a["after"][k] - b["after"][k])[due].abs().max())
+            # One trip on the CPU run's inputs and table, card vs CPU.
+            table, inputs, _, _, Tcw, opt = b["args"]
+            one = opt._replace(iters=1)
+            c = system_mod.reconstruct_due_objects(table, inputs, on["cpu"], TOY_DEC, Tcw, one)
+            g = system_mod.reconstruct_due_objects(type(table)(*(x.cuda() for x in table)),
+                                                   ShapeInputs(*(x.cuda() for x in inputs)), on["cuda"], TOY_DEC,
+                                                   Tcw.cuda(), one)
+            gap["one_trip_same_slots"] = bool(torch.equal(g.shape_ok.cpu(), c.shape_ok))
+            for k in ("code", "Tow_shape"):
+                gap[f"one_trip_{k}"] = float((getattr(g, k).cpu() - getattr(c, k)).abs().max())
+        res["steps"].append(gap)
+    log(f"phase 17 shapes card vs CPU, {SHAPE_SMALL} frames at 500 features, decoder {tuple(TOY_DEC)}: keyframes "
+        f"{kfs[0]} vs {kfs[1]}, reconstructed slots {res['shape_ok']['cuda']} vs {res['shape_ok']['cpu']}, "
+        f"true-surface median |SDF| {res['surface']}, SDF minimum over the cube {res['sdf_min']}")
+    for gap in res["steps"]:
+        log(f"  shape step: {gap}")
+    one_trip = [st for st in res["steps"] if st["due"]]
+    if (kfs[0] != kfs[1] or not (ok["cuda"] == ok["cpu"]).all() or ok["cpu"].sum() < 1 or not one_trip
+            or not all(st["one_trip_same_slots"] and st["one_trip_code"] < SHAPE_GAP
+                       and st["one_trip_Tow_shape"] < SHAPE_GAP and st["T_oc_init"] < SHAPE_INIT_GAP
+                       for st in one_trip)
+            or not all(max(res["surface"][d].values()) < SHAPE_SDF and max(res["sdf_min"][d].values()) < 0.0
+                       for d in runs)):
+        raise AssertionError(f"shape card and CPU runs disagree: {res}")
+    return res
+
+
+def synthetic_path() -> dict:
+    """Phase 18: `run_synthetic.main(["30", "--objects"])` at its defaults."""
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = run_synthetic.main(["30", "--objects"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"phase 18 run_synthetic 30 --objects: {wall_s:.1f} s (decoder training included), ATE "
+        f"{out['ate_rmse_m']:.5f} m, keyframes {out['keyframes']}, objects {out['num_objects']}, precision "
+        f"{out.get('obj_precision')} recall {out.get('obj_recall')} IoU {out.get('obj_mean_iou')}, shapes "
+        f"reconstructed {out['shapes_reconstructed']}; launches {counts}")
+    if not (out["ate_rmse_m"] < 0.05 and out["shapes_reconstructed"] >= 1 and out["backend"] == "cuda"):
+        raise AssertionError(f"run_synthetic --objects failed: {out}")
+    if counts["fast_nms"] != 30:
+        raise AssertionError(f"run_synthetic launches: {counts}")
+    return {"wall_s": wall_s, "out": out, "launches": counts}
+
+
 def profile_objects(tmp: str, stereo_sys, path: Path) -> None:
     """torch.profiler tables of the object step of one warm RGB-D keyframe
     (phase 13's sequence, 4000 features) and of one local joint BA call on
@@ -1110,6 +1547,8 @@ def run_slam(cfg, frames, device, warmup: int = 10):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default=None, help="write a torch.profiler table here")
+    ap.add_argument("--shape-dump", default=None,
+                    help="save phase 16's first full-width shape step here (for tools/shape_step_reference.py)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1266,6 +1705,10 @@ def main() -> int:
         objects_card_vs_cpu(tmp)
         if prof_dir:
             profile_objects(tmp, stereo_obj.pop("system"), prof_dir / "profile_objects.txt")
+        shape = shape_path(tmp, prof_dir, args.shape_dump)
+    shape_frames_small, _, shape_truth = shape_frames(SHAPE_SMALL)
+    shape_card_vs_cpu(shape_frames_small, shape_truth)
+    synth = synthetic_path()
     st = stereo_kernels(kit.pop("pair"), gen)
     mk = mono_kernels(gen)
     kernels[0]["launches_kitti_path"] = kit["launches"]["fast_nms"]
@@ -1286,6 +1729,10 @@ def main() -> int:
     kernels[0]["launches_stereo_objects_path"] = stereo_obj["launches"]["fast_nms"]
     kernels[1]["launches_stereo_objects_path"] = stereo_obj["launches"]["hamming_shapes"]
     kernels[0]["launches_tum_path"] = tum["launches"]["fast_nms"]
+    kernels[0]["launches_shape_path"] = shape["launches"]["fast_nms"]
+    kernels[1]["launches_shape_path"] = shape["launches"]["hamming_shapes"]
+    kernels[0]["launches_synthetic_objects_path"] = synth["launches"]["fast_nms"]
+    kernels[1]["launches_synthetic_objects_path"] = synth["launches"]["hamming_shapes"]
     kernels[1]["launches_tum_path"] = tum["launches"]["hamming"]
     kernels[1]["recovery"] = {
         "at_" + shape: times for shape, times in rec["k2"].items()

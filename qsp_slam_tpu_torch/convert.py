@@ -1,10 +1,9 @@
 """Carry state from the JAX package into the port.
 
-This path has no learned weights; its state is the map, the keyframe
-snapshot store, the object table, a frame (the monocular bootstrap's
-reference) and the configuration.  The functions take the JAX objects as
-numpy arrays or plain field dictionaries, so this module never imports
-JAX:
+The state is the map, the keyframe snapshot store, the object table, a
+frame (the monocular bootstrap's reference), the configuration and the
+DeepSDF decoder's weights.  The functions take the JAX objects as numpy
+arrays or plain field dictionaries, so this module never imports JAX:
 
     map_state_from_numpy({k: np.asarray(v) for k, v in m._asdict().items()})
     loop_state_from_numpy({k: (v._asdict() if k == "db" else np.asarray(v))
@@ -12,6 +11,7 @@ JAX:
     object_table_from_numpy({k: np.asarray(v) for k, v in t._asdict().items()})
     frame_from_numpy({"feats": f.feats._asdict(), "depth": ..., "u_right": ...})
     tracking_config_from_fields(cfg._asdict())
+    deepsdf_params_from_numpy(jax.tree_util.tree_map(np.asarray, params))
 """
 
 from __future__ import annotations
@@ -80,3 +80,11 @@ def tracking_config_from_fields(fields: Mapping[str, Any]) -> TrackingConfig:
     orb["pyramid"] = PyramidConfig(**_fields(orb.get("pyramid", PyramidConfig())))
     fields["dist_coef"] = tuple(float(c) for c in fields.get("dist_coef", (0.0,) * 5))
     return TrackingConfig(orb=OrbConfig(**orb), **fields)
+
+
+def deepsdf_params_from_numpy(tree: Mapping[str, Any], device=None) -> dict:
+    """The JAX decoder pytree `{"lin{i}": {"v", "g", "b"}}` as numpy ->
+    the port's params (f32 tensors)."""
+    dev = resolve_device(device)
+    return {name: {k: torch.tensor(np.asarray(v), dtype=torch.float32, device=dev) for k, v in layer.items()}
+            for name, layer in tree.items()}

@@ -25,7 +25,7 @@ import torch
 
 from .. import resolve_device
 from ..core.camera import Intrinsics, backproject
-from .make_tum import png_gray
+from .make_tum import png_encode
 from .render import make_scene, render_scene
 
 # velodyne frame (x fwd, y left, z up) -> cam0 frame (z fwd, x right, y down)
@@ -183,7 +183,7 @@ def make_kitti_sequence(
         g8 = _to_u8(gl)
         for sub, img in (("image_0", g8), ("image_1", _to_u8(gr))):
             with open(os.path.join(out_dir, sub, f"{i:06d}.png"), "wb") as f:
-                f.write(png_gray(img))
+                f.write(png_encode(img))
 
         # Velodyne scan: the strided left depth backprojected to cam0 and
         # mapped into the velodyne frame (a forward sector of a spin);

@@ -37,13 +37,15 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF)
 
 
-def png_gray(img: np.ndarray) -> bytes:
-    """A gray PNG (uint8 -> 8-bit, uint16 -> 16-bit) with filter 0 rows."""
+def png_encode(img: np.ndarray) -> bytes:
+    """A PNG with filter 0 rows: gray (H, W) uint8 -> 8-bit, uint16 ->
+    16-bit; RGB (H, W, 3) uint8 -> 8-bit truecolor."""
     depth = {np.dtype(np.uint8): 8, np.dtype(np.uint16): 16}[img.dtype]
-    h, w = img.shape
+    h, w = img.shape[:2]
+    color = {2: 0, 3: 2}[img.ndim]  # PNG color types: gray, truecolor
     rows = np.ascontiguousarray(img).astype(img.dtype.newbyteorder(">")).view(np.uint8).reshape(h, -1)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
-    ihdr = struct.pack(">IIBBBBB", w, h, depth, 0, 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 0)
     return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", ihdr)
             + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b""))
 
@@ -109,9 +111,9 @@ def make_sequence(out_dir: str, num_frames: int = 640, num_objects: int = 0, ste
         d16 = torch.clamp(depth * DEPTH_SCALE, 0, 65535).to(torch.int32).cpu().numpy().astype(np.uint16)
         rgb_rel, depth_rel = f"rgb/{t:.6f}.png", f"depth/{t:.6f}.png"
         with open(os.path.join(out_dir, rgb_rel), "wb") as f:
-            f.write(png_gray(g8))
+            f.write(png_encode(g8))
         with open(os.path.join(out_dir, depth_rel), "wb") as f:
-            f.write(png_gray(d16))
+            f.write(png_encode(d16))
         rgb_lines.append(f"{t:.6f} {rgb_rel}")
         depth_lines.append(f"{t:.6f} {depth_rel}")
         T_wc = np.linalg.inv(traj[i])

@@ -31,19 +31,22 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _lib_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libqsp_loader-{digest}.so"
-
-
-def _build(out: Path) -> None:
+def shared_library(source: Path, stem: str, libs: tuple = ()) -> Path:
+    """The path of `source` compiled into `_build/lib<stem>-<hash>.so`,
+    compiled first (portable flags, `$CXX` or `g++`) if it is not there.
+    Raises when the compiler fails."""
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
+    out = BUILD_DIR / f"lib{stem}-{digest}.so"
+    if out.exists():
+        return out
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp), str(SOURCE), "-lz", "-lpthread"]
+    cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp), str(source), *libs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"building the native loader failed:\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"building {source.name} failed:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
+    return out
 
 
 def library() -> ctypes.CDLL:
@@ -51,10 +54,7 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            path = _lib_path()
-            if not path.exists():
-                _build(path)
-            lib = ctypes.CDLL(str(path))
+            lib = ctypes.CDLL(str(shared_library(SOURCE, "qsp_loader", ("-lz", "-lpthread"))))
             f_p, i_p = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
             lib.ql_load_png.restype = ctypes.c_int
             lib.ql_load_png.argtypes = [ctypes.c_char_p, ctypes.c_float, f_p, ctypes.c_int, i_p, i_p]

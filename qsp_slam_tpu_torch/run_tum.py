@@ -5,9 +5,10 @@ one, feeding the object landmarks), and prints one JSON line:
 `SlamSystem.summary()`, the ATE, RPE and keyframe ATE against the ground
 truth when it has one, and `decoded_by`, the number of frames each
 decoder read.  With `--save-dir` it writes `CameraTrajectory.txt` (TUM
-format) and `map.npz` with the objects.  The reference's scene export and
-object render (`export_scene`, `render_objects_png`) come with later
-slices (10 and 7).  It runs on CUDA unless given `--cpu`.
+format), `map.npz` with the objects and, when there are objects,
+`objects_render.png` (the object map rendered from the final camera over
+its gray frame).  The reference's scene export (`export_scene`) comes
+with slice 10.  It runs on CUDA unless given `--cpu`.
 
     python -m qsp_slam_tpu_torch.run_tum SEQUENCE_DIR [--config seq.yaml]
         [--save-dir out] [--skip N] [--max-frames F] [--detections DIR]
@@ -107,6 +108,11 @@ def main(argv=None):
         os.makedirs(args.save_dir, exist_ok=True)
         save_trajectory_tum(os.path.join(args.save_dir, "CameraTrajectory.txt"), timestamps, est)
         save_map(os.path.join(args.save_dir, "map.npz"), sysm.map_state, sysm.objects)
+        if int(sysm.objects.valid.sum()) > 0:
+            from .viz.object_render import render_objects_png
+
+            render_objects_png(os.path.join(args.save_dir, "objects_render.png"), sysm.objects, sysm.Tcw, cfg.intr,
+                               cfg.height, cfg.width, gray=gray, shape_prior=sysm.shape_prior)
     print(json.dumps(out))
     return out
 

@@ -2,16 +2,20 @@
 `qsp_slam_tpu/slam/config.py`, `tracking_config_from_yaml`): the
 reference's OpenCV-style keys map onto `TrackingConfig` fields, unknown
 dotted keys warn, and keyword overrides win.  PyYAML is imported only when
-a file is read.  The model-side JSON arrives with ROADMAP slice 7.
+a file is read.  `shape_config_from_json` reads the model-side JSON (the
+reference's `configs/config_*.json` optimizer block) into a
+`ShapeOptConfig`.
 """
 
 from __future__ import annotations
 
+import json
 import warnings
 from typing import Any
 
 from ..frontend.orb import OrbConfig
 from ..frontend.pyramid import PyramidConfig
+from ..models.shape_opt import ShapeOptConfig
 from .tracking import TrackingConfig
 
 # YAML key -> TrackingConfig field; None = read below or ignored.
@@ -89,3 +93,26 @@ def tracking_config_from_yaml(path: str, **overrides: Any) -> TrackingConfig:
         flat["orb"] = OrbConfig()._replace(**orb)
     flat.update(overrides)
     return TrackingConfig()._replace(**flat)
+
+
+# JSON optimizer key -> ShapeOptConfig field, converter.
+_JSON_KEYS = {
+    "num_iterations": ("iters", int),
+    "k1": ("w_sdf", float),
+    "k2": ("w_render", float),
+    "k3": ("w_rot", float),
+    "k4": ("w_code", float),
+    "scale_damping": ("w_scale", float),
+    "b1": ("huber_sdf", float),
+    "b2": ("huber_render", float),
+}
+
+
+def shape_config_from_json(path: str) -> ShapeOptConfig:
+    """A ShapeOptConfig from a model-side JSON: its "optimizer" block, or
+    the top level when there is none; absent keys keep their defaults."""
+    with open(path) as f:
+        raw = json.load(f)
+    opt = raw.get("optimizer", raw)
+    return ShapeOptConfig()._replace(**{field: conv(opt[key]) for key, (field, conv) in _JSON_KEYS.items()
+                                        if key in opt})

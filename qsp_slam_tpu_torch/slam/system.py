@@ -21,9 +21,13 @@ box histories; RGB-D keyframes also track the Manhattan planes and type
 object-plane relations, which route each object's supporting plane into
 the refinement, and stereo keyframes run the joint camera-point-object
 BA, which the global BA joins once objects carry pose measurements.
-Capabilities of later port slices (DeepSDF shapes, learned detectors,
-sharded BA) raise `NotImplementedError` naming the slice (see ROADMAP.md
-queue A).
+With a DeepSDF `shape_prior`, the RGB-D and stereo object step ends with
+the shape step: each due object gathers surface points and rays from the
+keyframe's depth (stereo: a scatter image of the keypoint depths; with
+instance masks, the surface points are the object's own pixels) and runs
+the joint pose + code LM over its flip hypotheses.  Capabilities of later
+port slices (learned detectors, sharded BA) raise `NotImplementedError`
+naming the slice (see ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from .. import resolve_device
 from ..core import lie
 from ..core import plane as plane_mod
 from ..core.camera import backproject, intrinsic_matrix
+from ..models.shape_opt import ShapeOptConfig
 from ..perception.ellipsoid_fit import core_mask, fit_ellipsoid_depth, fit_ellipsoid_points, sample_bbox_depth_points
 from ..perception.groundplane import adaptive_inlier_th, estimate_ground_plane, estimate_ground_plane_points
 from ..perception.manhattan import empty_plane_set, extract_manhattan_planes, update_plane_set
@@ -80,6 +85,7 @@ from .objects import (
 )
 from .place_recognition import bow_signature, query_topk_with_ref
 from .relocalization import relocalize, track_reference_keyframe
+from .shape_mapping import gather_shape_inputs, keypoint_depth_image, reconstruct_due_objects
 from .tracking import (
     FrameData,
     TrackingConfig,
@@ -94,7 +100,6 @@ from .tracking import (
 
 _LATER = {
     "detector": "slice 8 (learned detectors)",
-    "shape_prior": "slice 7 (DeepSDF shapes)",
     "mesh": "slice 9 (distribution)",
 }
 
@@ -136,6 +141,8 @@ class SlamSystem:
     # None is the neutral 1:1.
     aspect_priors: Optional[object] = None
     detector: Optional[tuple] = None
+    # DeepSDF prior (params, DeepSDFConfig[, ShapeOptConfig]): per-object
+    # shape reconstruction at keyframes of the RGB-D and stereo object step.
     shape_prior: Optional[tuple] = None
     mesh: Optional[object] = None
     device: Optional[str] = None
@@ -193,7 +200,8 @@ class SlamSystem:
     def _clear_state(self) -> None:
         self.map_state = mapmod.empty_map(self.kmax, self.nmax, self.emax, self.device)
         self.loop_state = empty_loop_state(self.kmax, device=self.device)
-        self.objects = empty_objects(self.omax, device=self.device)
+        code_dim = self.shape_prior[1].code_dim if self.shape_prior else 16
+        self.objects = empty_objects(self.omax, code_dim=code_dim, device=self.device)
         self.plane_set = empty_plane_set(8, device=self.device)
         self.relations = None
         self.ground_plane = None
@@ -660,7 +668,27 @@ class SlamSystem:
             support_w = support_planes_for_objects(self.relations, self.plane_set.planes, pvalid, pi_w)
         objs = refine_objects(objs, K, pi_w, support_planes_w=support_w, img_wh=(cfg.width, cfg.height))
         self.objects = cull_objects(merge_duplicates(objs), kf_id)
+        if self.shape_prior is not None:
+            self._reconstruct_shapes(detections, depth, frame, pi_cam, Tcw, assoc.obj_for_det, kf_id)
         self._sync()
+
+    def _reconstruct_shapes(self, detections, depth, frame: FrameData, pi_cam, Tcw, obj_for_det, kf_id: int):
+        """The shape step: surface points and rays of the due objects (draws
+        from a CPU generator seeded 5000 + keyframe id), instance masks
+        when the detections carry "mask", then the LM over the due objects'
+        flip hypotheses."""
+        cfg = self.cfg
+        params, dec_cfg = self.shape_prior[:2]
+        opt_cfg = self.shape_prior[2] if len(self.shape_prior) > 2 else ShapeOptConfig()
+        if depth is None:  # stereo keeps depth per keypoint
+            depth = keypoint_depth_image(frame.feats.xy, frame.depth, cfg.height, cfg.width)
+        masks = {}
+        if "mask" in detections:
+            masks = dict(det_masks=torch.as_tensor(np.asarray(detections["mask"])).to(self.device, torch.bool),
+                         det_assoc=obj_for_det)
+        inputs = gather_shape_inputs(self.objects, Tcw, depth, pi_cam, cfg.intr,
+                                     torch.Generator().manual_seed(5000 + kf_id), **masks)
+        self.objects = reconstruct_due_objects(self.objects, inputs, params, dec_cfg, Tcw, opt_cfg)
 
     def _update_structures(self, depth, pi_cam, Tcw, kf_id: int):
         """Manhattan planes of this keyframe's depth (a stride-8 cloud, four

@@ -15,7 +15,11 @@ rows agree but for a few at the chi2 threshold), pose within 1e-3 m; the
 Sim(3) loop closer's poses and objects within 1e-3 of the CPU's; short
 RGB-D and stereo object runs: the same keyframes, object slots, labels
 (and Manhattan plane slots), object centres within 1 cm; the joint BA's
-dense pose solve within 1e-4 of the CPU's, relative.
+dense pose solve within 1e-4 of the CPU's, relative; the DeepSDF decoder
+at the reference's width within 1e-5 of the CPU, two joint pose + code LM
+trips at that width within 1e-3 (deeper runs part along the code's weak
+directions on any two machines), and the package's marching-cubes build
+on a sphere.
 """
 
 import numpy as np
@@ -382,3 +386,62 @@ def test_solve_dense_pose_system_matches_cpu(gen):
     assert float(card[fixed].abs().max()) == 0.0
     bad = solve_dense_pose_system(-S.cuda().reshape(V, 6, V, 6), rhs.cuda(), fixed.cuda())
     assert bool(torch.isnan(bad).all())
+
+
+def _full_width_decoder():
+    from qsp_slam_tpu_torch.models.deepsdf import DeepSDFConfig, init_decoder
+
+    cfg = DeepSDFConfig()
+    return cfg, init_decoder(torch.Generator().manual_seed(7), cfg, device="cpu")
+
+
+def test_full_width_decode_matches_cpu(gen):
+    from qsp_slam_tpu_torch.models.deepsdf import decode_sdf
+
+    cfg, params = _full_width_decoder()
+    g = torch.Generator().manual_seed(1)
+    code, xyz = 0.3 * torch.randn(4, 64, generator=g), 2.0 * torch.rand(4, 8448, 3, generator=g) - 1.0
+    card = {k: {n: t.cuda() for n, t in p.items()} for k, p in params.items()}
+    got = decode_sdf(card, cfg, code.cuda(), xyz.cuda()).cpu()
+    assert float((got - decode_sdf(params, cfg, code, xyz)).abs().max()) < 1e-5
+
+
+def test_full_width_reconstruct_object_matches_cpu(gen):
+    """Two LM trips of four flip hypotheses at full width, card vs CPU: the
+    toy decoder trained on the card, tests/test_shape.py:65's problem
+    (a family shape's surface 1.8 m ahead at scale 0.35, rays and depths
+    from the same points, the frame perturbed)."""
+    from qsp_slam_tpu_torch.core import lie
+    from qsp_slam_tpu_torch.models.deepsdf import DeepSDFConfig, train_toy_decoder
+    from qsp_slam_tpu_torch.models.shape_opt import ShapeOptConfig, flip_hypotheses, reconstruct_object
+
+    cfg = DeepSDFConfig()
+    card_params, _, halves = train_toy_decoder(0, cfg, device="cuda")
+    params = {k: {n: t.cpu() for n, t in p.items()} for k, p in card_params.items()}
+    g = torch.Generator().manual_seed(2)
+    d = torch.randn(256, 3, generator=g)
+    d = d / d.norm(dim=-1, keepdim=True)
+    T_co = lie.exp_se3(torch.tensor([0.1, -0.05, 1.8, 0.0, 0.5, 0.0]))
+    pts = (d * halves[1].cpu()) @ (0.35 * T_co[:3, :3]).T + T_co[:3, 3]
+    T_co[:3, :3] *= 0.35
+    T0 = lie.exp_sim3(torch.tensor([0.06, -0.04, 0.08, 0.05, -0.08, 0.04, 0.1])) @ lie.inv_sim3(T_co)
+    ok = torch.ones(4, 256, dtype=torch.bool)
+    args = [flip_hypotheses(T0, 4), torch.zeros(4, 64), pts.expand(4, -1, -1), ok, (pts / pts[:, 2:]).expand(4, -1, -1),
+            pts[:, 2].expand(4, -1), ok]
+    cpu = reconstruct_object(params, cfg, *args, ShapeOptConfig(iters=2))
+    card = reconstruct_object(card_params, cfg, *(a.cuda() for a in args), ShapeOptConfig(iters=2))
+    assert float((card.T_oc.cpu() - cpu.T_oc).abs().max()) < 1e-3
+    assert float((card.code.cpu() - cpu.code).abs().max()) < 1e-3
+    assert torch.equal(card.is_good.cpu(), cpu.is_good)
+
+
+def test_marching_cubes_build(gen):
+    """The package's own build of native/marching_cubes.cpp on a sphere:
+    every vertex within half a voxel of the radius."""
+    from qsp_slam_tpu_torch.models.mesh import marching_cubes
+
+    g = np.linspace(-1.0, 1.0, 40, dtype=np.float32)
+    z, y, x = np.meshgrid(g, g, g, indexing="ij")
+    mesh = marching_cubes(np.sqrt(x * x + y * y + z * z) - 0.6)
+    r = np.linalg.norm(mesh.vertices * (2.0 / 39) - 1.0, axis=1)
+    assert len(mesh.faces) > 1000 and np.abs(r - 0.6).max() < 1.0 / 39

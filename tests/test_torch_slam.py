@@ -326,7 +326,7 @@ class TestLocalMapping:
 
 
 class TestSystemScope:
-    @pytest.mark.parametrize("kw", [dict(detector=("p", "c")), dict(shape_prior=("p", "c")), dict(mesh=object())])
+    @pytest.mark.parametrize("kw", [dict(detector=("p", "c")), dict(mesh=object())])
     def test_later_slices_raise(self, kw):
         with pytest.raises(NotImplementedError, match="slice"):
             SlamSystem(ttr.TrackingConfig(), kmax=4, nmax=64, emax=256, device="cpu", **kw)
