@@ -97,9 +97,12 @@ Phases (any failure exits non-zero and prints no result line):
      frame, K2 launches per shape;
  15. the object paths on the card against the CPU: 10 RGB-D frames of
      phase 13's scene at 500 features with the renderer's detections, and
-     10 frames of phase 9's small drive with LiDAR detections computed
-     once on the CPU: the same keyframes, object slots and labels (and
-     Manhattan plane slots), object centres within 1 cm.
+     10 frames of phase 9's small drive with a perfect 3D detector's
+     detections: the same keyframes, object slots and labels (and
+     Manhattan plane slots), object centres within 1 cm; every object
+     step traced on both devices (`ObjectStepDumps`, queue C): each step
+     before the refinement within OBJECT_STEP_GAP, the refined and final
+     objects within OBJECT_GAPS (centres, half-axes, orientation).
   K2 at the monocular shapes: exactly equal to plain with planted rows at
   (1000, 1000) bootstrap, (384, 1000) keyframe triangulation and
   (8192, 1000) tracking, each timed.
@@ -129,10 +132,37 @@ Phases (any failure exits non-zero and prints no result line):
      gaps are printed, its starting frames must agree within
      SHAPE_INIT_GAP, and one LM trip on the CPU run's inputs card vs CPU
      within SHAPE_GAP (eight trips carry the start's gap into the codes:
-     PERF.md section 6);
+     PERF.md section 6); the object steps traced and bounded as in 15;
  18. `run_synthetic.main(["30", "--objects"])` at its defaults: ATE <
      0.05 m, >= 1 reconstructed shape, K1 once per frame.
-Paths 4, 7, 8, 9, 10, 11, 13, 14, 16 and 18 each zero the launch counters just
+ 19. the learned 2D detector at the reference's width (widths 16/32/48,
+     480x640): `train_detector` on the card with `run_synthetic
+     --detector`'s recipe (3000 steps, 8 scenes, lr 2e-3, seed 7; ms per
+     step, the mean of the last 20 losses below the first 20's);
+     tests/test_detector2d.py's bars at full resolution on its 8 SLAM
+     views (recall >= 0.4 at IoU > 0.4, <= 2 false positives); card vs
+     CPU on the same params and views (the same valid rows and labels,
+     their boxes within 0.5 px, masks equal on >= 99.9% of the pixels) and
+     one training step from the same start (loss and params within 1e-4
+     relative); `detect_objects` and a training step timed by CUDA events
+     and as device time (cuDNN's share of it) beside the f32 FLOP bound;
+     then detect-online drives: `run_tum --detector` (the trained weights
+     saved with `save_detector2d`) on phase 13's sequence at 4000
+     features and `run_synthetic.main(["30", "--objects", "--detector"])`
+     (its training call handed the detector just trained, its recipe):
+     ATE < 0.05 m and >= 1 object of the scene's labels with >= 2
+     observations, K1 once per frame, the detector once per keyframe
+     (CUDA events around each call);
+ 20. the learned 3D detector at the reference's width (grid 128, 32
+     pillar channels, widths 32/48): `train_detector3d` on the card (800
+     steps); tests/test_detector3d.py's bars on 12 fresh scans (recall >
+     0.85, < 0.75 false positives per scan, centre and size errors < 0.6
+     m, yaw error < 20 degrees) and no detection on a ground-only scan;
+     card vs CPU on one scan (the same valid rows, centres within 1e-3 m);
+     `detect_objects_3d` on a 32768-point scan and a training step timed
+     as in 19; then `run_kitti --detector3d` on phase 9's drive: ATE <
+     0.6 m, RPE < 0.25 m, >= 4 keyframes, >= 1 object, K1 once per frame.
+Paths 4, 7, 8, 9, 10, 11, 13, 14, 16, 18, 19 and 20 each zero the launch counters just
 before and read them just after.  With `--profile DIR`: torch.profiler tables in DIR
 of main-path frames 12-19, of KITTI-drive frames 12-19 (phase 9's
 configuration) and of monocular frames 12-19 (phase 11's), the device's busy share of each window, each kernel's
@@ -195,6 +225,8 @@ from qsp_slam_tpu_torch.ops.fast_nms import (  # noqa: E402
     fast_score_nms_pyramid_plain,
 )
 from qsp_slam_tpu_torch.ops.hamming import hamming_packed, hamming_packed_plain  # noqa: E402
+from qsp_slam_tpu_torch.perception import detector2d as det2d  # noqa: E402
+from qsp_slam_tpu_torch.perception import detector3d as det3d  # noqa: E402
 from qsp_slam_tpu_torch.slam import system as system_mod  # noqa: E402
 from qsp_slam_tpu_torch.slam.system import SlamSystem  # noqa: E402
 from qsp_slam_tpu_torch.slam.tracking import TrackingConfig, process_frame  # noqa: E402
@@ -229,6 +261,21 @@ MONO_GAP = 0.005  # phase 12 centre gate, mono gauge units
 # the monocular LM's turn about the vertical is weakly determined and
 # carries 2e-4 into 1e-2.
 MONO_STEP_GAPS = {"bootstrap T_cw2": 1e-4, "bootstrap pts_w": 1e-2, "keyframes after local BA": 1e-3}
+# Queue C: the RGB-D object step card vs CPU, per step (phases 15 and 17).
+# Every step before the refinement agreed within 6.9e-6 on the H100 (the
+# association exactly); the refinement's 8 LM trips on objects with two
+# boxes solve systems of condition 1e6-1e8 in f32 and take or refuse
+# trips on cost changes of 1e-3, so they carry those gaps to 8.0e-3 rad,
+# 2.4e-4 m and 4.1e-4 m.  One-ulp changes of the start move the JAX
+# package's refined objects as far (7.9e-3 rad, 2.0e-4 m, 3.4e-4 m;
+# tools/refine_rounding.py).  Bounds: 1e-4 before the refinement; after
+# it, and for the final objects, centres and half-axes 1e-3 m and
+# orientations 0.02 rad (about twice the reference's one-ulp spread).
+OBJECT_STEP_GAP = 1e-4
+OBJECT_STEPS_EXACT = ("estimate_ground_plane", "estimate_ground_plane_points", "extract_manhattan_planes",
+                      "sample_bbox_depth_points", "select_support_plane", "fit_ellipsoid_points",
+                      "associate_detections")
+OBJECT_GAPS = {"centre": 1e-3, "rotation": 0.02, "half_axes": 1e-3}
 KERNEL_NAMES = ("fast_score_nms_pyramid_kernel", "hamming_mma_kernel")  # as the profiler names them
 SHAPE_FRAMES, SHAPE_F, SHAPE_SMALL = 20, 4000, 10  # phase 16 (tests/test_shape_mapping.py's scene); phase 17
 SHAPE_SDF = 0.12  # phase 16: median |SDF| of a reconstructed object's true surface (tests/test_shape_mapping.py)
@@ -239,6 +286,13 @@ SHAPE_GAP = 1e-3  # phase 17: codes and Tow_shape after one LM trip on the same 
 # H100; the gate is about twice that.
 SHAPE_INIT_GAP = 0.05
 TOY_DEC = DeepSDFConfig(code_dim=16, hidden=96, num_layers=6, latent_in=(3,))  # the JAX tests' toy width
+DET2D_RECIPE = dict(steps=3000, scenes=8, lr=2e-3)  # run_synthetic --detector's, seed 7
+DET2D_SEED = 7
+DET2D_RECALL, DET2D_FP = 0.4, 2  # tests/test_detector2d.py's bars (recall at IoU > 0.4, false positives)
+DET2D_BOX_GAP, DET2D_MASK_AGREE = 0.5, 0.999  # phase 19 card vs CPU: box px, mask pixel share
+DET3D_STEPS = 800  # train_detector3d's default
+DET3D_BARS = {"recall": 0.85, "fp_per_scan": 0.75, "centre_m": 0.6, "size_m": 0.6, "yaw_deg": 20.0}
+DET_STEP_GAP = 1e-4  # one training step card vs CPU, relative
 
 
 def log(*a):
@@ -706,6 +760,94 @@ class StepDumps:
             setattr(system_mod, n, fn)
 
 
+class ObjectStepDumps:
+    """The RGB-D and stereo object step's intermediate results, in call
+    order (queue C's trace): the ground plane of each keyframe
+    (`estimate_ground_plane`, `_points`), the Manhattan planes, the depth
+    samples and support planes of the structured fit, every fit
+    (`fit_ellipsoid_points`), the association, the integrated table, the
+    refined table (`refine_objects`) and the merged one.  Installed over
+    the system module's names, as `StepDumps` is."""
+
+    NAMES = ("estimate_ground_plane", "estimate_ground_plane_points", "extract_manhattan_planes",
+             "sample_bbox_depth_points", "select_support_plane", "fit_ellipsoid_points", "associate_detections",
+             "integrate_keyframe", "refine_objects", "merge_duplicates")
+
+    def __init__(self):
+        self.steps = []
+        self._saved = {n: getattr(system_mod, n) for n in self.NAMES}
+
+    @staticmethod
+    def _table(t):
+        v = t.valid.cpu().numpy()
+        return np.where(v[:, None], t.ellipsoid.cpu().numpy(), 0.0)
+
+    def __enter__(self):
+        show = {
+            "estimate_ground_plane": lambda r: np.concatenate([r.plane.cpu().numpy(), [float(r.ok)]]),
+            "estimate_ground_plane_points": lambda r: np.concatenate([r.plane.cpu().numpy(), [float(r.ok)]]),
+            "extract_manhattan_planes": lambda r: np.concatenate([r[0].cpu().numpy().reshape(-1),
+                                                                  r[1].cpu().numpy().reshape(-1)]),
+            "sample_bbox_depth_points": lambda r: np.where(r[1].cpu().numpy()[..., None], r[0].cpu().numpy(), 0.0),
+            "select_support_plane": lambda r: r.cpu().numpy(),
+            "fit_ellipsoid_points": lambda r: np.where(r.ok.cpu().numpy()[:, None], r.ellipsoid_cam.cpu().numpy(),
+                                                       0.0),
+            "associate_detections": lambda r: r.obj_for_det.cpu().numpy().astype(np.float64),
+            "integrate_keyframe": self._table, "refine_objects": self._table, "merge_duplicates": self._table,
+        }
+
+        def wrap(name, fn):
+            def dumped(*a, **k):
+                out = fn(*a, **k)
+                self.steps.append((name, show[name](out)))
+                return out
+            return dumped
+
+        for n, fn in self._saved.items():
+            setattr(system_mod, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._saved.items():
+            setattr(system_mod, n, fn)
+
+
+def ellipsoid_gaps(a: np.ndarray, b: np.ndarray) -> dict:
+    """Max card-vs-CPU gap of (N, 9) ellipsoid rows by part: centres and
+    half-axes (m), Euler angles modulo 2 pi and the angle between the two
+    rotations (rad)."""
+    d = np.abs(a - b)
+    eul = np.abs((a[:, 3:6] - b[:, 3:6] + np.pi) % (2 * np.pi) - np.pi)
+    Ra, Rb = (quadric.euler_to_rotmat(torch.from_numpy(np.asarray(x[:, 3:6], np.float64))).numpy() for x in (a, b))
+    cos = (np.einsum("nij,nij->n", Ra, Rb) - 1.0) / 2.0
+    return {"centre": float(d[:, :3].max(initial=0.0)), "euler": float(eul.max(initial=0.0)),
+            "rotation": float(np.arccos(np.clip(cos, -1.0, 1.0)).max(initial=0.0)),
+            "half_axes": float(d[:, 6:9].max(initial=0.0))}
+
+
+def object_gaps_ok(g: dict) -> bool:
+    return all(g[k] <= bound for k, bound in OBJECT_GAPS.items())
+
+
+def object_step_trace(a: list, b: list) -> dict:
+    """Queue C's trace of two runs' `ObjectStepDumps`: each step's max gap
+    in call order, the first step past 1e-5 and, for the ellipsoid steps,
+    the gap by part."""
+    gaps = step_gaps(a, b)
+    first = next(((i, name) for i, (name, g) in enumerate(gaps) if g > 1e-5), None)
+    parts = {}
+    for (na, xa), (nb, xb) in zip(a, b):
+        if na == nb and na in ("fit_ellipsoid_points", "integrate_keyframe", "refine_objects", "merge_duplicates") \
+                and xa.shape == xb.shape:
+            g = ellipsoid_gaps(xa, xb)
+            parts[na] = {k: max(v, parts.get(na, {}).get(k, 0.0)) for k, v in g.items()}
+    ok = (len(a) == len(b) == len(gaps) and all(g <= OBJECT_STEP_GAP for n, g in gaps if n in OBJECT_STEPS_EXACT)
+          and all(object_gaps_ok(g) for g in parts.values()))
+    return {"steps": len(gaps), "same_steps": len(a) == len(b) == len(gaps), "first_past_1e-5": first,
+            "max_by_step": {n: max(g for m, g in gaps if m == n) for n, _ in gaps}, "ellipsoid_parts": parts,
+            "sequence": [(n, float(f"{g:.2e}")) for n, g in gaps], "within_bounds": ok}
+
+
 def step_gaps(a: list, b: list) -> list:
     """(step, max abs gap) for the steps the two runs share, in order."""
     return [(na, float(np.abs(xa - xb).max(initial=0.0)) if xa.shape == xb.shape else float("inf"))
@@ -790,32 +932,42 @@ def mono_path(tmp: str, keep: int) -> dict:
     return res
 
 
-class JointTimes:
-    """CUDA-event ms and window of every `joint_ba_step` the facade calls
-    (window `ba_window`: the local joint BA; window kmax: the global one),
-    installed over the system module's name."""
+class CallTimes:
+    """CUDA-event ms of every call of a module's function, installed over
+    its name (the facade's `joint_ba_step`, `detect_objects`): `calls`
+    holds (key(*args), ms) for each call, `ms` the times alone."""
 
-    def __init__(self):
-        self.calls = []
-        self._saved = system_mod.joint_ba_step
+    def __init__(self, module, name: str, key=lambda *a, **k: None):
+        self.module, self.name, self.key, self.calls = module, name, key, []
+        self._saved = getattr(module, name)
+
+    @property
+    def ms(self) -> list:
+        return [ms for _, ms in self.calls]
 
     def __enter__(self):
         saved = self._saved
 
-        def timed(m, objects, cfg, window=8):
+        def timed(*a, **k):
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
-            out = saved(m, objects, cfg, window)
+            out = saved(*a, **k)
             e1.record()
             torch.cuda.synchronize()
-            self.calls.append((window, e0.elapsed_time(e1)))
+            self.calls.append((self.key(*a, **k), e0.elapsed_time(e1)))
             return out
 
-        system_mod.joint_ba_step = timed
+        setattr(self.module, self.name, timed)
         return self
 
     def __exit__(self, *exc):
-        system_mod.joint_ba_step = self._saved
+        setattr(self.module, self.name, self._saved)
+
+
+def joint_times() -> CallTimes:
+    """Every `joint_ba_step` the facade calls, keyed by its window (window
+    `ba_window`: the local joint BA; window kmax: the global one)."""
+    return CallTimes(system_mod, "joint_ba_step", key=lambda m, objects, cfg, window=8: window)
 
 
 def scene_truth(step: float, pitch: float):
@@ -899,7 +1051,7 @@ def stereo_objects_path(tmp: str) -> dict:
     seq_dir, poses = os.path.join(tmp, "kitti"), os.path.join(tmp, "kitti_poses.txt")
     torch.cuda.synchronize()
     zero_counts()
-    with FrameTimes("track_stereo") as ft, JointTimes() as jt:
+    with FrameTimes("track_stereo") as ft, joint_times() as jt:
         t0 = time.perf_counter()
         out = run_kitti.main([seq_dir, "--poses", poses, "--lidar-detections", "--global-ba", "--save-dir",
                               os.path.join(tmp, "kitti_obj_out")])
@@ -938,7 +1090,7 @@ def stereo_objects_path(tmp: str) -> dict:
     sysm = SlamSystem(cfg, kmax=128, nmax=16384, emax=131072)
     torch.cuda.synchronize()
     zero_counts()
-    with FrameTimes("track_stereo") as ft, JointTimes() as jt:
+    with FrameTimes("track_stereo") as ft, joint_times() as jt:
         t0 = time.perf_counter()
         for (gl, gr), det in zip(pairs, dets):
             sysm.track_stereo(gl, gr, det)
@@ -992,33 +1144,41 @@ def objects_card_vs_cpu(tmp: str) -> dict:
     dets3d = drive_detections(seq, 10)
     res = {}
     for name in ("rgbd", "stereo"):
-        runs = {}
+        runs, dumps = {}, {}
         for dev in ("cuda", "cpu"):
-            if name == "rgbd":
-                runs[dev] = SlamSystem(cfg, device=dev)
-                for g, d, det in frames:
-                    runs[dev].track_rgbd(g, d, det)
-            else:
-                runs[dev] = SlamSystem(scfg, kmax=16, nmax=4096, emax=32768, device=dev)
-                for (gl, gr), det in zip(pairs, dets3d):
-                    runs[dev].track_stereo(gl, gr, det)
-                runs[dev].run_global_ba()
+            with ObjectStepDumps() as od:
+                if name == "rgbd":
+                    runs[dev] = SlamSystem(cfg, device=dev)
+                    for g, d, det in frames:
+                        runs[dev].track_rgbd(g, d, det)
+                else:
+                    runs[dev] = SlamSystem(scfg, kmax=16, nmax=4096, emax=32768, device=dev)
+                    for (gl, gr), det in zip(pairs, dets3d):
+                        runs[dev].track_stereo(gl, gr, det)
+                    runs[dev].run_global_ba()
+            dumps[dev] = od.steps
         o = {dev: (r.objects.valid.cpu().numpy(), r.objects.label.cpu().numpy(), r.objects.ellipsoid.cpu().numpy())
              for dev, r in runs.items()}
         same = bool((o["cuda"][0] == o["cpu"][0]).all() and (o["cuda"][1] == o["cpu"][1]).all())
         live = o["cpu"][0]
         gap = float(np.linalg.norm(o["cuda"][2][live, :3] - o["cpu"][2][live, :3], axis=1).max(initial=0.0))
+        final = ellipsoid_gaps(o["cuda"][2][live], o["cpu"][2][live])
+        trace = object_step_trace(dumps["cuda"], dumps["cpu"])
         p = {dev: positions_from_Tcw(np.stack(r.trajectory).astype(np.float64)) for dev, r in runs.items()}
         cam_gap = float(np.linalg.norm(p["cuda"] - p["cpu"], axis=1).max())
         planes_same = bool(torch.equal(runs["cuda"].plane_set.valid.cpu(), runs["cpu"].plane_set.valid))
         kfs = (runs["cuda"].stats["kf_frames"], runs["cpu"].stats["kf_frames"])
         res[name] = {"centre_gap_m": gap, "camera_gap_m": cam_gap, "objects": int(live.sum()), "same_slots": same,
-                     "same_planes": planes_same, "kf_frames": kfs}
+                     "same_planes": planes_same, "kf_frames": kfs, "final_gaps": final, "trace": trace}
         log(f"phase 15 {name} objects card vs CPU, 10 frames at 500 features: keyframes {kfs[0]} vs {kfs[1]}, "
             f"objects {int(o['cuda'][0].sum())} vs {int(live.sum())} (same slots and labels: {same}), max object "
-            f"centre gap {gap:.2e} m, max camera centre gap {cam_gap:.2e} m, same Manhattan plane slots: {planes_same}")
-        if (kfs[0] != kfs[1] or not same or live.sum() < 1 or gap > 0.01
-                or (name == "rgbd" and not planes_same)):
+            f"centre gap {gap:.2e} m, final objects' gaps {final}, max camera centre gap {cam_gap:.2e} m, same "
+            f"Manhattan plane slots: {planes_same}")
+        log(f"  object-step trace (queue C): first step past 1e-5 {trace['first_past_1e-5']}, max by step "
+            f"{ {k: float(f'{v:.2e}') for k, v in trace['max_by_step'].items()} }, ellipsoid gaps by step "
+            f"{trace['ellipsoid_parts']}, within the per-step bounds: {trace['within_bounds']}")
+        if (kfs[0] != kfs[1] or not same or live.sum() < 1 or gap > 0.01 or not object_gaps_ok(final)
+                or not trace["within_bounds"] or (name == "rgbd" and not planes_same)):
             raise AssertionError(f"{name} object card and CPU runs disagree: {res[name]}")
     return res
 
@@ -1331,13 +1491,14 @@ def shape_card_vs_cpu(frames: list, truth) -> dict:
     params = train_toy_decoder(0, TOY_DEC, num_shapes=8, steps=400, device="cpu")[0]
     on = {"cpu": params, "cuda": {k: {n: t.cuda() for n, t in p.items()} for k, p in params.items()}}
     cfg = TrackingConfig(orb=OrbConfig(num_features=500))
-    runs, steps = {}, {}
+    runs, steps, dumps = {}, {}, {}
     for dev in ("cuda", "cpu"):
-        with ShapeSteps() as ss:
+        with ShapeSteps() as ss, ObjectStepDumps() as od:
             runs[dev] = SlamSystem(cfg, shape_prior=(on[dev], TOY_DEC), device=dev)
             for g, d, det in frames[:SHAPE_SMALL]:
                 runs[dev].track_rgbd(g, d, det)
-        steps[dev] = ss.steps
+        steps[dev], dumps[dev] = ss.steps, od.steps
+    trace = object_step_trace(dumps["cuda"], dumps["cpu"])
     kfs = (runs["cuda"].stats["kf_frames"], runs["cpu"].stats["kf_frames"])
     ok = {dev: (r.objects.valid & r.objects.shape_ok).cpu().numpy() for dev, r in runs.items()}
     res = {"kf_frames": kfs, "shape_ok": {d: np.nonzero(v)[0].tolist() for d, v in ok.items()}, "steps": [],
@@ -1353,9 +1514,8 @@ def shape_card_vs_cpu(frames: list, truth) -> dict:
             gap["points"] = float(np.abs(a["inputs"].pts_cam.numpy()[due][same]
                                          - b["inputs"].pts_cam.numpy()[due][same]).max(initial=0.0))
             gap["T_oc_init"] = float((a["inputs"].T_oc_init - b["inputs"].T_oc_init)[due].abs().max())
-            e = (a["args"][0].ellipsoid.cpu() - b["args"][0].ellipsoid)[due].abs()
-            gap["ellipsoid"] = {"centre": float(e[:, :3].max()), "euler": float(e[:, 3:6].max()),
-                                "half_axes": float(e[:, 6:9].max())}
+            gap["ellipsoid"] = ellipsoid_gaps(a["args"][0].ellipsoid.cpu().numpy()[due],
+                                              b["args"][0].ellipsoid.numpy()[due])
             for k in ("code", "Tow_shape"):
                 gap[k] = float((a["after"][k] - b["after"][k])[due].abs().max())
             # One trip on the CPU run's inputs and table, card vs CPU.
@@ -1374,11 +1534,15 @@ def shape_card_vs_cpu(frames: list, truth) -> dict:
         f"true-surface median |SDF| {res['surface']}, SDF minimum over the cube {res['sdf_min']}")
     for gap in res["steps"]:
         log(f"  shape step: {gap}")
+    res["trace"] = trace
+    log(f"  object-step trace (queue C): first step past 1e-5 {trace['first_past_1e-5']}, ellipsoid gaps by step "
+        f"{trace['ellipsoid_parts']}, within the per-step bounds: {trace['within_bounds']}")
     one_trip = [st for st in res["steps"] if st["due"]]
     if (kfs[0] != kfs[1] or not (ok["cuda"] == ok["cpu"]).all() or ok["cpu"].sum() < 1 or not one_trip
+            or not trace["within_bounds"]
             or not all(st["one_trip_same_slots"] and st["one_trip_code"] < SHAPE_GAP
                        and st["one_trip_Tow_shape"] < SHAPE_GAP and st["T_oc_init"] < SHAPE_INIT_GAP
-                       for st in one_trip)
+                       and object_gaps_ok(st["ellipsoid"]) for st in one_trip)
             or not all(max(res["surface"][d].values()) < SHAPE_SDF and max(res["sdf_min"][d].values()) < 0.0
                        for d in runs)):
         raise AssertionError(f"shape card and CPU runs disagree: {res}")
@@ -1403,6 +1567,389 @@ def synthetic_path() -> dict:
     if counts["fast_nms"] != 30:
         raise AssertionError(f"run_synthetic launches: {counts}")
     return {"wall_s": wall_s, "out": out, "launches": counts}
+
+
+def det2d_macs(cfg) -> int:
+    """MACs of one 2D detector forward, from its shapes: the two stride-2
+    convs, the four 3x3 convs and the 1x1 heads at stride 4."""
+    H, W = cfg.input_hw
+    w0, w1, w2 = cfg.widths
+    s1, s2 = (H // 2) * (W // 2), (H // 4) * (W // 4)
+    return 9 * (s1 * w0 + s2 * w0 * w1 + s2 * w1 * w2 + 3 * s2 * w2 * w2) + s2 * w2 * (cfg.num_classes + 5)
+
+
+def det3d_macs(cfg, points: int) -> int:
+    """MACs of one 3D detector forward over `points` points: the point MLP,
+    the stride-2 stem, the three 3x3 convs and the 1x1 heads."""
+    C, (w0, w1) = cfg.channels, cfg.widths
+    s = (cfg.grid // 2) ** 2
+    return points * (6 * C + C * C) + 9 * s * (C * w0 + w0 * w1 + 2 * w1 * w1) + s * w1 * (cfg.num_classes + 8)
+
+
+CONV_KERNEL_WORDS = ("conv", "cudnn", "xmma", "implicit", "winograd", "fprop", "dgrad", "wgrad")
+
+
+def device_profile(fn, reps: int, path: Path | None = None, what: str = "") -> dict:
+    """Device time per call of `fn` over `reps` profiled calls, its kernel
+    launches per call and the share of the device time in convolution
+    kernels (cuDNN's, by kernel name); the table goes to `path`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total = sum(self_dev_us(e) for e in events)
+    conv = sum(self_dev_us(e) for e in events if any(w in e.key.lower() for w in CONV_KERNEL_WORDS))
+    if path is not None:
+        path.write_text(f"== {what}, {reps} calls ==\n"
+                        + prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
+    return {"device_ms": total / reps / 1e3, "launches": sum(e.count for e in events) / reps,
+            "conv_share": conv / total if total else 0.0}
+
+
+def bbox_iou(a, b) -> float:
+    x0, y0, x1, y1 = max(a[0], b[0]), max(a[1], b[1]), min(a[2], b[2]), min(a[3], b[3])
+    i = max(0.0, x1 - x0) * max(0.0, y1 - y0)
+    return i / max((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - i, 1e-6)
+
+
+def detector2d_views() -> list:
+    """tests/test_detector2d.py's 8 SLAM views (scenes 2 and 999, orbit
+    frames 0, 10, 20, 29, 25 degrees down) at full resolution, rendered on
+    the card: (gray, truth boxes, truth valid)."""
+    cfg = TrackingConfig()
+    pitch = lie.exp_se3(torch.tensor([0, 0, 0, 0.44, 0, 0], dtype=torch.float32)).numpy()
+    views = []
+    for seed in (2, 999):
+        scene = make_scene(num_objects=3, seed=seed, device="cuda")
+        traj = orbit_trajectory(30)
+        for fi in (0, 10, 20, 29):
+            T = traj[fi] @ pitch
+            gray, _, _ = render_scene(scene, T, cfg.intr)
+            gt = gt_detections(scene, T, cfg.intr)
+            views.append((gray, gt["bbox"].cpu().numpy(), gt["valid"].cpu().numpy()))
+    return views
+
+
+def detector2d_quality(params, cfg, views) -> dict:
+    """Recall at IoU > 0.4 over the valid truth boxes and false positives
+    (IoU < 0.2 with every truth box, valid or not), as
+    tests/test_detector2d.py counts them."""
+    hits = tot = fp = 0
+    for gray, gtb, gtv in views:
+        det = det2d.detect_objects(params, cfg, gray)
+        pb, pv = det["bbox"].cpu().numpy(), det["valid"].cpu().numpy()
+        for g in gtb[gtv]:
+            tot += 1
+            hits += max((bbox_iou(g, p) for p, v in zip(pb, pv) if v), default=0.0) > 0.4
+        fp += sum(1 for p, v in zip(pb, pv) if v and max(bbox_iou(g, p) for g in gtb) < 0.2)
+    return {"recall": hits / max(tot, 1), "hits": hits, "truth": tot, "false_positives": fp}
+
+
+def rel_gap(a: dict, b: dict) -> float:
+    """Largest gap of two param dicts relative to b's largest magnitude."""
+    scale = max(float(v.abs().max()) for v in b.values())
+    return max(float((a[k].cpu() - b[k].cpu()).abs().max()) for k in b) / scale
+
+
+def fed_step(params: dict, loss_fn, inputs: tuple, device: str, lr: float):
+    """One Adam update (the training's optimizer and schedule) of a copy of
+    `params` on `device`, on fed inputs -> (loss, grads, params)."""
+    p = {k: v.detach().clone().to(device) for k, v in params.items()}
+    opt, _ = det2d.adam(p, lr, 10)
+    loss = loss_fn(p, *(x.to(device) for x in inputs))
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    grads = {k: v.grad.detach().clone() for k, v in p.items()}
+    opt.step()
+    return float(loss.detach()), grads, {k: v.detach() for k, v in p.items()}
+
+
+def detector2d_path(tmp: str, prof: Path | None) -> dict:
+    """Phase 19: the learned 2D detector trained on the card at the
+    reference's width, its quality and card-vs-CPU gates, its times, then
+    the detect-online RGB-D drives."""
+    cfg, intr = det2d.DetectorConfig(), TrackingConfig().intr
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, losses = det2d.train_detector(DET2D_SEED, cfg, device="cuda", **DET2D_RECIPE)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    views = detector2d_views()
+    q = detector2d_quality(params, cfg, views)
+
+    # Card vs CPU on the same params and views.
+    on_cpu = {k: v.cpu() for k, v in params.items()}
+    box_gap, agree, same = 0.0, 1.0, True
+    for gray, _, _ in views:
+        a, b = det2d.detect_objects(params, cfg, gray), det2d.detect_objects(on_cpu, cfg, gray.cpu())
+        va, vb = a["valid"].cpu(), b["valid"]
+        same &= bool(torch.equal(va, vb) and torch.equal(a["label"].cpu()[vb], b["label"][vb]))
+        if vb.any():
+            box_gap = max(box_gap, float((a["bbox"].cpu()[vb] - b["bbox"][vb]).abs().max()))
+            agree = min(agree, float((a["mask"].cpu()[vb] == b["mask"][vb]).float().mean()))
+    # One training step from the same start on the same fed view (rendered
+    # once, on the CPU).
+    scene = make_scene(num_objects=4, seed=100, device="cpu")
+    T_cw = orbit_trajectory(64, step=0.03, pitch=0.35)[20]
+    g, _, inst = render_scene(scene, T_cw, intr)
+    d = gt_detections(scene, T_cw, intr)
+    start = det2d.init_detector(torch.Generator().manual_seed(DET2D_SEED), cfg, device="cpu")
+    steps = {dev: fed_step(start, lambda p, *x: det2d.detector_loss(p, cfg, *x),
+                           (g, d["bbox"], d["label"], d["valid"], inst), dev, DET2D_RECIPE["lr"])
+             for dev in ("cuda", "cpu")}
+    step_loss_gap = abs(steps["cuda"][0] - steps["cpu"][0]) / abs(steps["cpu"][0])
+    step_grad_gap = rel_gap(steps["cuda"][1], steps["cpu"][1])
+    step_param_gap = rel_gap(steps["cuda"][2], steps["cpu"][2])
+
+    # Times: one detect_objects call on a 480x640 frame, one training step.
+    gray = views[0][0]
+    flop = 2 * det2d_macs(cfg)
+    train_params = {k: v.clone() for k, v in params.items()}
+    opt, sched = det2d.adam(train_params, 1e-5, 10 ** 6)
+    scene = make_scene(num_objects=4, seed=100, device="cuda")
+    times = {
+        "detect_objects": {"ms": cuda_ms(lambda: det2d.detect_objects(params, cfg, gray), 50),
+                           **device_profile(lambda: det2d.detect_objects(params, cfg, gray), 10,
+                                            prof / "profile_detector2d.txt" if prof else None,
+                                            "detect_objects at 480x640"),
+                           "bound_ms": flop / FP32_OPS_PER_S * 1e3, "flop": flop},
+        "train_step": {"ms": cuda_ms(lambda: det2d.train_step(train_params, opt, sched, cfg, scene, T_cw, intr), 20),
+                       **device_profile(lambda: det2d.train_step(train_params, opt, sched, cfg, scene, T_cw, intr), 5,
+                                        prof / "profile_detector2d_train.txt" if prof else None,
+                                        "one training step at 480x640 (render, targets, forward, backward, Adam)"),
+                       "bound_ms": 3 * flop / FP32_OPS_PER_S * 1e3, "flop": 3 * flop},
+    }
+    res = {"train_s": train_s, "ms_per_step": train_s * 1e3 / DET2D_RECIPE["steps"], "loss_first20": first,
+           "loss_last20": last, "quality": q, "same_rows": same, "box_gap_px": box_gap, "mask_agree": agree,
+           "step_loss_gap": step_loss_gap, "step_grad_gap": step_grad_gap, "step_param_gap": step_param_gap,
+           "times": times}
+    log(f"phase 19 2D detector at {cfg.widths} on {cfg.input_hw}: trained on the card in {train_s:.1f} s "
+        f"({res['ms_per_step']:.2f} ms per step, {DET2D_RECIPE['steps']} steps), loss {first:.4f} -> {last:.4f} "
+        f"(means of the first and last 20); on the 8 SLAM views recall {q['hits']}/{q['truth']} = "
+        f"{q['recall']:.3f}, {q['false_positives']} false positives; card vs CPU: same valid rows and labels "
+        f"{same}, box gap {box_gap:.2e} px, masks agree on {100 * agree:.4f}% of pixels; one training step: loss "
+        f"gap {step_loss_gap:.2e}, gradients {step_grad_gap:.2e}, params {step_param_gap:.2e} (relative to the largest "
+        f"magnitude)")
+    for name, t in times.items():
+        log(f"  {name}: {t['ms']:.3f} ms by events, {t['device_ms']:.3f} ms device time, {t['launches']:.0f} "
+            f"kernel launches, convolutions {100 * t['conv_share']:.1f}% of the device time; bound "
+            f"{t['bound_ms']:.4f} ms ({t['flop'] / 1e9:.2f} GFLOP at 67 TFLOP/s)")
+    if not (last < first and q["recall"] >= DET2D_RECALL and q["false_positives"] <= DET2D_FP and same
+            and box_gap <= DET2D_BOX_GAP and agree >= DET2D_MASK_AGREE and step_loss_gap <= DET_STEP_GAP
+            and step_param_gap <= DET_STEP_GAP):
+        raise AssertionError(f"2D detector failed: {res}")
+
+    # Detect-online: run_tum --detector on phase 13's sequence.
+    weights = os.path.join(tmp, "detector2d.npz")
+    det2d.save_detector2d(weights, params, cfg)
+    seq_dir, conf = os.path.join(tmp, "mono"), os.path.join(tmp, "tum4000.yaml")
+    torch.cuda.synchronize()
+    zero_counts()
+    with FrameTimes("track_rgbd") as ft, CallTimes(system_mod, "detect_objects") as dt:
+        t0 = time.perf_counter()
+        out = run_tum.main([seq_dir, "--detector", weights, "--config", conf])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    gt, gt_labels = scene_truth(0.025, 0.4)
+    tum = online_objects(ft.system, out, gt, gt_labels)
+    tum.update(ms_per_frame_end_to_end=wall_ms / MONO_FRAMES, det_ms=dt.ms, launches=counts,
+               kf_frames=ft.system.stats["kf_frames"], obj_ms=ft.system.stats["obj_ms"])
+    log(f"phase 19 run_tum --detector on phase 13's sequence ({MONO_FRAMES} frames, {TUM_OBJ_F} features): "
+        f"{tum['ms_per_frame_end_to_end']:.3f} ms/frame end to end, keyframes at {tum['kf_frames']}, ATE "
+        f"{out['ate_rmse_m']:.5f} m, objects {out['num_objects']} ({tum['seen_twice']} of the scene's labels with >= "
+        f"2 observations), precision {tum['precision']:.3f} recall {tum['recall']:.3f}; detect_objects ms per "
+        f"keyframe by events {[round(x, 2) for x in dt.ms]}, object ms per keyframe "
+        f"{[round(x, 1) for x in tum['obj_ms']]}; launches {counts}")
+    if not (out["ate_rmse_m"] < 0.05 and tum["seen_twice"] >= 1 and len(dt.ms) == len(tum["kf_frames"])):
+        raise AssertionError(f"run_tum --detector failed: {tum}")
+    if counts["fast_nms"] != MONO_FRAMES or counts["hamming"] < 1:
+        raise AssertionError(f"run_tum --detector launches: {counts}")
+    res["run_tum"] = tum
+
+    # run_synthetic 30 --objects --detector.  Its training is the recipe
+    # trained above (the same call and arguments): the phase hands it those
+    # params rather than train the same detector twice.
+    recipe = []
+
+    def trained(seed, dcfg, device, **kw):
+        recipe.append((seed, dcfg, torch.device(device).type, kw))
+        return params, losses
+
+    torch.cuda.synchronize()
+    zero_counts()
+    saved_train, det2d.train_detector = det2d.train_detector, trained
+    try:
+        with FrameTimes("track_rgbd") as ft, CallTimes(system_mod, "detect_objects") as dt:
+            t0 = time.perf_counter()
+            out = run_synthetic.main(["30", "--objects", "--detector"])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    finally:
+        det2d.train_detector = saved_train
+    if recipe != [(DET2D_SEED, cfg, "cuda", DET2D_RECIPE)]:
+        raise AssertionError(f"run_synthetic --detector trained another recipe: {recipe}")
+    counts = read_counts()
+    objs = ft.system.objects
+    seen = int((objs.valid & (objs.obs_count >= 2) & (objs.label >= 0) & (objs.label <= 2)).sum())
+    res["run_synthetic"] = syn = {"wall_s": wall_s, "out": out, "det_ms": dt.ms, "seen_twice": seen,
+                                  "launches": counts}
+    log(f"phase 19 run_synthetic 30 --objects --detector: {wall_s:.1f} s (decoder training included; the "
+        f"detector is the one trained above, the same recipe), ATE {out['ate_rmse_m']:.5f} m, keyframes {out['keyframes']}, objects {out['num_objects']} "
+        f"({seen} with >= 2 observations), precision {out.get('obj_precision')} recall {out.get('obj_recall')}, "
+        f"shapes {out['shapes_reconstructed']}; detect_objects ms per keyframe {[round(x, 2) for x in dt.ms]}; "
+        f"launches {counts}")
+    if not (out["ate_rmse_m"] < 0.05 and seen >= 1 and out["backend"] == "cuda" and len(dt.ms) == out["keyframes"]):
+        raise AssertionError(f"run_synthetic --detector failed: {syn}")
+    if counts["fast_nms"] != 30:
+        raise AssertionError(f"run_synthetic --detector launches: {counts}")
+    return res
+
+
+def online_objects(sysm, out, gt, gt_labels) -> dict:
+    """A detect-online drive's objects against the scene: those of its
+    labels with >= 2 observations, precision and recall."""
+    objs = sysm.objects
+    valid = objs.valid.cpu().numpy()
+    labels = objs.label.cpu().numpy()
+    seen = int((valid & (objs.obs_count.cpu().numpy() >= 2) & np.isin(labels, np.unique(gt_labels))).sum())
+    ev = evaluate_objects(objs.ellipsoid.cpu().numpy()[valid], labels[valid], gt, gt_labels)
+    return {"seen_twice": seen, "precision": ev.precision, "recall": ev.recall, "out": out}
+
+
+def detector3d_quality(params, cfg, scans) -> dict:
+    """tests/test_detector3d.py's bars over fresh scans: recall within 2 m,
+    false positives per scan, centre, size and yaw (mod pi) errors."""
+    hits = tot = fp = 0
+    cerr, serr, yerr = [], [], []
+    for pts, pv, gt in scans:
+        det = det3d.detect_objects_3d(params, cfg, pts, pv)
+        dv = det.valid.cpu().numpy()
+        dc, ds, dy = (getattr(det, k).cpu().numpy()[dv] for k in ("center", "size", "yaw"))
+        gc, gs, gy, gv = (gt[k].cpu().numpy() for k in ("center", "size", "yaw", "valid"))
+        used = np.zeros(len(dc), bool)
+        for b in np.nonzero(gv)[0]:
+            tot += 1
+            if len(dc) == 0:
+                continue
+            d = np.linalg.norm(dc - gc[b], axis=1)
+            j = int(np.argmin(d))
+            if d[j] < 2.0 and not used[j]:
+                used[j] = True
+                hits += 1
+                cerr.append(d[j])
+                serr.append(np.abs(ds[j] - gs[b]).mean())
+                yerr.append(abs((dy[j] - gy[b] + np.pi / 2) % np.pi - np.pi / 2))
+        fp += int((~used).sum())
+    return {"recall": hits / max(tot, 1), "hits": hits, "truth": tot, "fp_per_scan": fp / len(scans),
+            "centre_m": float(np.mean(cerr)) if cerr else np.inf, "size_m": float(np.mean(serr)) if serr else np.inf,
+            "yaw_deg": float(np.degrees(np.mean(yerr))) if yerr else np.inf}
+
+
+def detector3d_path(tmp: str, prof: Path | None) -> dict:
+    """Phase 20: the learned 3D detector trained on the card at the
+    reference's width, its quality and card-vs-CPU gates, its times, then
+    `run_kitti --detector3d` on phase 9's drive."""
+    cfg = det3d.Detector3DConfig()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, losses = det3d.train_detector3d(0, cfg, steps=DET3D_STEPS, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    scans = [det3d.synth_scan(torch.Generator().manual_seed(50_000 + s), cfg, device="cuda") for s in range(12)]
+    q = detector3d_quality(params, cfg, scans)
+    g = torch.Generator().manual_seed(7)
+    ground = torch.stack([cfg.x_min + 30.0 * torch.rand(4096, generator=g), torch.full((4096,), cfg.ground_y),
+                          0.5 + 29.5 * torch.rand(4096, generator=g)], -1).cuda()
+    empty = int(det3d.detect_objects_3d(params, cfg, ground, torch.ones(4096, dtype=torch.bool,
+                                                                         device="cuda")).valid.sum())
+    # Card vs CPU on one scan.
+    pts, pv, _ = scans[0]
+    a = det3d.detect_objects_3d(params, cfg, pts, pv)
+    b = det3d.detect_objects_3d({k: v.cpu() for k, v in params.items()}, cfg, pts.cpu(), pv.cpu())
+    same = bool(torch.equal(a.valid.cpu(), b.valid))
+    centre_gap = float((a.center.cpu() - b.center)[b.valid].abs().max()) if b.valid.any() else 0.0
+    # Times: detect_objects_3d on a scan padded to the 32768-point budget,
+    # one training step.
+    budget = 32768
+    full = torch.zeros((budget, 3), device="cuda")
+    full[: pts.shape[0]] = pts
+    fvalid = torch.arange(budget, device="cuda") < pts.shape[0]
+    flop = 2 * det3d_macs(cfg, budget)
+    train_params = {k: v.clone() for k, v in params.items()}
+    opt, sched = det2d.adam(train_params, 1e-5, 10 ** 6)
+    sp, spv, sg = scans[1]
+
+    def step():
+        loss = det3d.detector3d_loss(train_params, cfg, sp, spv, sg["center"], sg["size"], sg["yaw"], sg["valid"])
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        sched.step()
+
+    step_flop = 3 * 2 * det3d_macs(cfg, sp.shape[0])
+    times = {
+        "detect_objects_3d": {"ms": cuda_ms(lambda: det3d.detect_objects_3d(params, cfg, full, fvalid), 50),
+                              **device_profile(lambda: det3d.detect_objects_3d(params, cfg, full, fvalid), 10,
+                                               prof / "profile_detector3d.txt" if prof else None,
+                                               "detect_objects_3d on a 32768-point scan"),
+                              "bound_ms": flop / FP32_OPS_PER_S * 1e3, "flop": flop},
+        "train_step": {"ms": cuda_ms(step, 20),
+                       **device_profile(step, 5, prof / "profile_detector3d_train.txt" if prof else None,
+                                        "one 3D training step (loss, backward, Adam; the scan drawn before)"),
+                       "bound_ms": step_flop / FP32_OPS_PER_S * 1e3, "flop": step_flop},
+    }
+    res = {"train_s": train_s, "ms_per_step": train_s * 1e3 / DET3D_STEPS, "loss_first20": first,
+           "loss_last20": last, "quality": q, "empty_scan_detections": empty, "same_rows": same,
+           "centre_gap_m": centre_gap, "times": times}
+    log(f"phase 20 3D detector (grid {cfg.grid}, {cfg.channels} channels, widths {cfg.widths}): trained on the card "
+        f"in {train_s:.1f} s ({res['ms_per_step']:.2f} ms per step, {DET3D_STEPS} steps, scans drawn included), "
+        f"loss {first:.4f} -> {last:.4f}; on 12 fresh scans {q}; ground-only scan: {empty} detections; card vs CPU: "
+        f"same valid rows {same}, centre gap {centre_gap:.2e} m")
+    for name, t in times.items():
+        log(f"  {name}: {t['ms']:.3f} ms by events, {t['device_ms']:.3f} ms device time, {t['launches']:.0f} "
+            f"kernel launches, convolutions {100 * t['conv_share']:.1f}% of the device time; bound "
+            f"{t['bound_ms']:.4f} ms ({t['flop'] / 1e9:.2f} GFLOP at 67 TFLOP/s)")
+    if not (last < first and q["recall"] > DET3D_BARS["recall"] and q["fp_per_scan"] < DET3D_BARS["fp_per_scan"]
+            and q["centre_m"] < DET3D_BARS["centre_m"] and q["size_m"] < DET3D_BARS["size_m"]
+            and q["yaw_deg"] < DET3D_BARS["yaw_deg"] and empty == 0 and same and centre_gap <= 1e-3):
+        raise AssertionError(f"3D detector failed: {res}")
+
+    weights = os.path.join(tmp, "detector3d.npz")
+    det3d.save_detector3d(weights, params, cfg)
+    seq_dir, poses = os.path.join(tmp, "kitti"), os.path.join(tmp, "kitti_poses.txt")
+    torch.cuda.synchronize()
+    zero_counts()
+    with FrameTimes("track_stereo") as ft:
+        t0 = time.perf_counter()
+        out = run_kitti.main([seq_dir, "--poses", poses, "--detector3d", weights, "--save-dir",
+                              os.path.join(tmp, "kitti_d3d_out")])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    sysm = ft.system
+    kitti = {"ms_per_frame_end_to_end": wall_ms / KITTI_FRAMES, "kf_frames": sysm.stats["kf_frames"],
+             "det_ms": sysm.stats.get("det_ms", []), "obj_ms": sysm.stats["obj_ms"], "launches": counts, "out": out}
+    res["run_kitti"] = kitti
+    log(f"phase 20 run_kitti --detector3d on phase 9's drive ({KITTI_FRAMES} frames at {KITTI_W}x{KITTI_H}): "
+        f"{kitti['ms_per_frame_end_to_end']:.3f} ms/frame end to end, keyframes at {kitti['kf_frames']}, ATE "
+        f"{out['ate_rmse_m']:.5f} m, RPE {out['rpe_trans_rmse']:.5f} m, objects {out['num_objects']}; provider ms "
+        f"per keyframe (scan read + detector + box projection) {[round(x, 1) for x in kitti['det_ms']]}, object ms "
+        f"per keyframe {[round(x, 1) for x in kitti['obj_ms']]}; launches {counts}")
+    if not (out["ate_rmse_m"] < 0.6 and out["rpe_trans_rmse"] < 0.25 and out["keyframes"] >= 4
+            and out["num_objects"] >= 1 and len(kitti["det_ms"]) == len(kitti["kf_frames"])):
+        raise AssertionError(f"run_kitti --detector3d failed: {kitti}")
+    if counts["fast_nms"] != KITTI_FRAMES or counts["hamming"] < 1:
+        raise AssertionError(f"run_kitti --detector3d launches: {counts}")
+    return res
 
 
 def profile_objects(tmp: str, stereo_sys, path: Path) -> None:
@@ -1706,9 +2253,11 @@ def main() -> int:
         if prof_dir:
             profile_objects(tmp, stereo_obj.pop("system"), prof_dir / "profile_objects.txt")
         shape = shape_path(tmp, prof_dir, args.shape_dump)
-    shape_frames_small, _, shape_truth = shape_frames(SHAPE_SMALL)
-    shape_card_vs_cpu(shape_frames_small, shape_truth)
-    synth = synthetic_path()
+        shape_frames_small, _, shape_truth = shape_frames(SHAPE_SMALL)
+        shape_card_vs_cpu(shape_frames_small, shape_truth)
+        synth = synthetic_path()
+        d2 = detector2d_path(tmp, prof_dir)
+        d3 = detector3d_path(tmp, prof_dir)
     st = stereo_kernels(kit.pop("pair"), gen)
     mk = mono_kernels(gen)
     kernels[0]["launches_kitti_path"] = kit["launches"]["fast_nms"]
@@ -1734,6 +2283,10 @@ def main() -> int:
     kernels[0]["launches_synthetic_objects_path"] = synth["launches"]["fast_nms"]
     kernels[1]["launches_synthetic_objects_path"] = synth["launches"]["hamming_shapes"]
     kernels[1]["launches_tum_path"] = tum["launches"]["hamming"]
+    for name, path in (("detector2d_run_tum", d2["run_tum"]), ("detector2d_run_synthetic", d2["run_synthetic"]),
+                       ("detector3d_run_kitti", d3["run_kitti"])):
+        kernels[0][f"launches_{name}_path"] = path["launches"]["fast_nms"]
+        kernels[1][f"launches_{name}_path"] = path["launches"]["hamming_shapes"]
     kernels[1]["recovery"] = {
         "at_" + shape: times for shape, times in rec["k2"].items()
     } | {

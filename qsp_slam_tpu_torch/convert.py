@@ -1,8 +1,8 @@
 """Carry state from the JAX package into the port.
 
 The state is the map, the keyframe snapshot store, the object table, a
-frame (the monocular bootstrap's reference), the configuration and the
-DeepSDF decoder's weights.  The functions take the JAX objects as numpy
+frame (the monocular bootstrap's reference), the configuration, the
+DeepSDF decoder's weights and the learned detectors' weights.  The functions take the JAX objects as numpy
 arrays or plain field dictionaries, so this module never imports JAX:
 
     map_state_from_numpy({k: np.asarray(v) for k, v in m._asdict().items()})
@@ -12,6 +12,8 @@ arrays or plain field dictionaries, so this module never imports JAX:
     frame_from_numpy({"feats": f.feats._asdict(), "depth": ..., "u_right": ...})
     tracking_config_from_fields(cfg._asdict())
     deepsdf_params_from_numpy(jax.tree_util.tree_map(np.asarray, params))
+    detector2d_params_from_numpy({k: np.asarray(v) for k, v in params.items()})
+    detector3d_params_from_numpy({k: np.asarray(v) for k, v in params.items()})
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from . import resolve_device
 from .frontend.orb import Features, OrbConfig
 from .frontend.pyramid import PyramidConfig
+from .perception.detector2d import params_from_numpy
 from .slam.loop_closing import LoopState
 from .slam.map import MapState
 from .slam.objects import ObjectTable
@@ -88,3 +91,15 @@ def deepsdf_params_from_numpy(tree: Mapping[str, Any], device=None) -> dict:
     dev = resolve_device(device)
     return {name: {k: torch.tensor(np.asarray(v), dtype=torch.float32, device=dev) for k, v in layer.items()}
             for name, layer in tree.items()}
+
+
+def detector2d_params_from_numpy(arrays: Mapping[str, Any], device=None) -> dict:
+    """The JAX 2D detector's params (HWIO conv weights) as numpy -> the
+    port's (OIHW), f32 on `device`."""
+    return params_from_numpy(arrays, device)
+
+
+def detector3d_params_from_numpy(arrays: Mapping[str, Any], device=None) -> dict:
+    """The JAX 3D detector's params as numpy -> the port's: HWIO conv
+    weights to OIHW, the point MLP's dense `p1`/`p2` weights as they are."""
+    return params_from_numpy(arrays, device)

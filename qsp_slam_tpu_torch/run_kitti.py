@@ -1,8 +1,9 @@
 """KITTI odometry stereo command line (counterpart of
 `qsp_slam_tpu/run_kitti.py`): tracks a sequence's stereo pairs with loop
 closing on, with object landmarks from per-frame detection caches
-(`--detections`) or from geometric proposals on the velodyne scans
-(`--lidar-detections`, computed at keyframes only), and prints one JSON
+(`--detections`) or from the velodyne scans at keyframes only: geometric
+proposals (`--lidar-detections`) or the learned 3D detector's boxes
+(`--detector3d`, which implies `--lidar-detections`), and prints one JSON
 line:
 `SlamSystem.summary()` plus, given `--poses`, the ATE, RPE and keyframe
 ATE (the keyframe chain after loop correction).  With `--save-dir` it
@@ -14,7 +15,7 @@ with `loop_events`, `loop_scan`, `capacity_events`, `resets`,
 
     python -m qsp_slam_tpu_torch.run_kitti SEQ_DIR [--poses poses.txt]
         [--save-dir out] [--max-frames F] [--detections DIR |
-        --lidar-detections] [--global-ba] [--cpu]
+        --lidar-detections [--detector3d PARAMS_NPZ]] [--global-ba] [--cpu]
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ import sys
 import numpy as np
 
 _LATER = {
-    "detector3d": "slice 8 (learned detectors)",
     "mesh": "slice 9 (distribution)",
 }
 
@@ -43,7 +43,7 @@ def main(argv=None):
     ap.add_argument("--lidar-detections", action="store_true",
                     help="detections from the velodyne scans (ground removal + clustering), at keyframes")
     ap.add_argument("--detector3d", default=None, metavar="PARAMS_NPZ",
-                    help="learned 3D detector (not in this port yet)")
+                    help="learned 3D detector's weights (train_detector3d); implies --lidar-detections")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of CUDA")
     ap.add_argument("--mesh", type=int, default=None, metavar="N", help="sharded global BA (not in this port yet)")
     ap.add_argument("--global-ba", action="store_true",
@@ -80,6 +80,12 @@ def main(argv=None):
     )
     sysm = SlamSystem(cfg, kmax=args.kmax, nmax=args.nmax, emax=args.emax,
                       device="cpu" if args.cpu else None)
+    d3d = None
+    if args.detector3d:
+        from .perception.detector3d import lidar_detections_learned, load_detector3d
+
+        d3d = load_detector3d(args.detector3d, device=sysm.device)
+        args.lidar_detections = True
     n = len(seq) if args.max_frames is None else min(len(seq), args.max_frames)
     # Stereo pairs decode ahead on the native worker pool.
     for idx, (gl, gr) in zip(range(n), seq.prefetch_pairs(range(n))):
@@ -92,6 +98,8 @@ def main(argv=None):
             # A lazy provider: the system calls it at keyframes only.
             def det(i=idx):
                 pts_cam = seq.transform_velo_to_cam(seq.load_velodyne(i, max_points=30000))
+                if d3d is not None:
+                    return lidar_detections_learned(*d3d, pts_cam, cfg.intr, W, H)
                 return lidar_detections(pts_cam, cfg.intr, W, H, device=sysm.device)
         sysm.track_stereo(gl, gr, det)
         if (idx + 1) % 50 == 0:

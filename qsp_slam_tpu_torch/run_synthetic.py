@@ -6,10 +6,13 @@ orbit); with `--objects`, three objects on the floor seen 25 degrees down
 with the renderer's detections and instance masks, and a toy DeepSDF
 prior trained on the fly (code 16, hidden 96, 6 layers) reconstructing
 them: the JSON then adds the object map's precision, recall, mean IoU and
-centre error against the scene, and `shapes_reconstructed`.  It runs on
-CUDA unless given `--cpu`.
+centre error against the scene, and `shapes_reconstructed`.  `--detector`
+(which implies `--objects`) trains the learned 2D detector on the
+renderer's ground truth first (3000 steps over 8 scenes, lr 2e-3, seed 7)
+and tracks without detections: the detector supplies them at keyframes.
+It runs on CUDA unless given `--cpu`.
 
-    python -m qsp_slam_tpu_torch.run_synthetic [num_frames] [--objects] [--cpu]
+    python -m qsp_slam_tpu_torch.run_synthetic [num_frames] [--objects] [--detector] [--cpu]
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ def main(argv=None):
     if unknown:
         raise SystemExit(f"run_synthetic: unknown options {sorted(unknown)}")
     if "--detector" in flags:
-        raise NotImplementedError("--detector arrives with ROADMAP slice 8 (learned detectors)")
+        flags.add("--objects")
     pos = [a for a in argv if not a.startswith("--")]
     num_frames = int(pos[0]) if pos else 120
 
@@ -51,9 +54,18 @@ def main(argv=None):
         scene = make_scene(num_objects=3, seed=2, device=dev)
         pitch = lie.exp_se3(torch.tensor([0, 0, 0, 0.44, 0, 0], dtype=torch.float32)).numpy()
         Tcw_gt = np.einsum("fij,jk->fik", Tcw_gt, pitch).astype(np.float32)
-        sysm = SlamSystem(cfg, shape_prior=(params, dec_cfg), device=dev)
+        detector = None
+        if "--detector" in flags:
+            from .perception.detector2d import DetectorConfig, train_detector
+
+            dcfg = DetectorConfig()
+            detector = (train_detector(7, dcfg, steps=3000, scenes=8, lr=2e-3, device=dev)[0], dcfg)
+        sysm = SlamSystem(cfg, shape_prior=(params, dec_cfg), detector=detector, device=dev)
         for T in Tcw_gt:
             gray, depth, inst = render_scene(scene, T, cfg.intr)
+            if detector is not None:
+                sysm.track_rgbd(gray, depth, None)
+                continue
             det = gt_detections(scene, T, cfg.intr, instance=inst)
             sysm.track_rgbd(gray, depth, {k: v.cpu().numpy() for k, v in det.items()})
     else:

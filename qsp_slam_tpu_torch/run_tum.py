@@ -1,7 +1,8 @@
 """TUM RGB-D command line (counterpart of `qsp_slam_tpu/run_tum.py`):
 reads a TUM-format sequence, tracks every `--skip`-th frame (with the
 frame's detection cache `<index>.npz` from `--detections`, when there is
-one, feeding the object landmarks), and prints one JSON line:
+one, feeding the object landmarks; or, with `--detector`, the learned 2D
+detector's boxes at keyframes), and prints one JSON line:
 `SlamSystem.summary()`, the ATE, RPE and keyframe ATE against the ground
 truth when it has one, and `decoded_by`, the number of frames each
 decoder read.  With `--save-dir` it writes `CameraTrajectory.txt` (TUM
@@ -11,8 +12,8 @@ its gray frame).  The reference's scene export (`export_scene`) comes
 with slice 10.  It runs on CUDA unless given `--cpu`.
 
     python -m qsp_slam_tpu_torch.run_tum SEQUENCE_DIR [--config seq.yaml]
-        [--save-dir out] [--skip N] [--max-frames F] [--detections DIR]
-        [--global-ba] [--cpu]
+        [--save-dir out] [--skip N] [--max-frames F] [--detections DIR |
+        --detector PARAMS_NPZ] [--global-ba] [--cpu]
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ from collections import Counter
 import numpy as np
 
 _LATER = {
-    "detector": "slice 8 (learned detectors)",
     "save_frames": "slice 10 (tools: frame drawer)",
     "mesh": "slice 9 (distribution)",
 }
@@ -41,7 +41,8 @@ def main(argv=None):
     ap.add_argument("--skip", type=int, default=1, help="process every Nth frame")
     ap.add_argument("--max-frames", type=int, default=None)
     ap.add_argument("--detections", default=None, help="directory of per-frame detection caches (<index>.npz)")
-    ap.add_argument("--detector", default=None, help="2D-detector weights (not in this port yet)")
+    ap.add_argument("--detector", default=None, metavar="PARAMS_NPZ",
+                    help="learned 2D detector's weights (train_detector2d): detect online at keyframes")
     ap.add_argument("--save-frames", default=None, help="annotated frames (not in this port yet)")
     ap.add_argument("--mesh", type=int, default=None, help="sharded global BA (not in this port yet)")
     ap.add_argument("--global-ba", action="store_true",
@@ -65,7 +66,12 @@ def main(argv=None):
     else:
         cfg = TrackingConfig()
     seq = TumSequence(args.sequence)
-    sysm = SlamSystem(cfg, device="cpu" if args.cpu else None)
+    detector = None
+    if args.detector:
+        from .perception.detector2d import load_detector2d
+
+        detector = load_detector2d(args.detector, device="cpu" if args.cpu else None)
+    sysm = SlamSystem(cfg, detector=detector, device="cpu" if args.cpu else None)
     timestamps, gt = [], []
     indices = list(range(0, len(seq), args.skip))
     if args.max_frames:

@@ -25,9 +25,12 @@ With a DeepSDF `shape_prior`, the RGB-D and stereo object step ends with
 the shape step: each due object gathers surface points and rays from the
 keyframe's depth (stereo: a scatter image of the keypoint depths; with
 instance masks, the surface points are the object's own pixels) and runs
-the joint pose + code LM over its flip hypotheses.  Capabilities of later
-port slices (learned detectors, sharded BA) raise `NotImplementedError`
-naming the slice (see ROADMAP.md queue A).
+the joint pose + code LM over its flip hypotheses.  With a learned 2D
+`detector`, an RGB-D or stereo frame given no detections keeps its gray
+image (the left one of a pair) on the device, and a keyframe detects in
+it (`perception/detector2d.detect_objects`) before its object step: the
+reference's detect-online mode.  The sharded BA of a later port slice
+raises `NotImplementedError` naming the slice (see ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from ..core import lie
 from ..core import plane as plane_mod
 from ..core.camera import backproject, intrinsic_matrix
 from ..models.shape_opt import ShapeOptConfig
+from ..perception.detector2d import detect_objects
 from ..perception.ellipsoid_fit import core_mask, fit_ellipsoid_depth, fit_ellipsoid_points, sample_bbox_depth_points
 from ..perception.groundplane import adaptive_inlier_th, estimate_ground_plane, estimate_ground_plane_points
 from ..perception.manhattan import empty_plane_set, extract_manhattan_planes, update_plane_set
@@ -99,7 +103,6 @@ from .tracking import (
 )
 
 _LATER = {
-    "detector": "slice 8 (learned detectors)",
     "mesh": "slice 9 (distribution)",
 }
 
@@ -114,6 +117,13 @@ def _to_device(x, device: torch.device) -> torch.Tensor:
         t = torch.from_numpy(x.view(np.int16)).to(device)
         return t.to(torch.int32) & 0xFFFF
     return torch.from_numpy(x).to(device)
+
+
+def _det_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A detection field (numpy array or tensor) as a tensor on `device`."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x))
+    return x.to(device, dtype)
 
 
 @dataclass
@@ -140,6 +150,8 @@ class SlamSystem:
     # Per-label aspect priors of the monocular objects (`AspectPriors`);
     # None is the neutral 1:1.
     aspect_priors: Optional[object] = None
+    # Learned 2D detector (params, DetectorConfig): detections at keyframes
+    # of RGB-D and stereo frames tracked without any (detect-online).
     detector: Optional[tuple] = None
     # DeepSDF prior (params, DeepSDFConfig[, ShapeOptConfig]): per-object
     # shape reconstruction at keyframes of the RGB-D and stereo object step.
@@ -165,8 +177,11 @@ class SlamSystem:
     def __post_init__(self):
         self._refuse_later()
         self.device = resolve_device(self.device)
+        if self.detector is not None:
+            params, dcfg = self.detector
+            self.detector = ({k: v.to(self.device) for k, v in params.items()}, dcfg)
         self._sensor = "rgbd"
-        self._pending_detections = self._pending_depth = None
+        self._pending_detections = self._pending_depth = self._pending_gray = None
         self._loop_gate = ConsistencyGate()
         self._clear_state()
 
@@ -233,6 +248,7 @@ class SlamSystem:
         self._ensure_capacity()
         gray = _to_device(gray, self.device)
         depth = _to_device(depth, self.device)
+        self._pending_gray = gray if detections is None and self.detector is not None else None
         self._pending_depth = depth.to(torch.float32)
         if depth.dtype == torch.int32:  # widened uint16
             depth = depth.to(torch.float32) / self.cfg.depth_png_scale
@@ -259,6 +275,7 @@ class SlamSystem:
         self._ensure_capacity()
         gl = _to_device(gray_left, self.device)
         gr = _to_device(gray_right, self.device)
+        self._pending_gray = gl if detections is None and self.detector is not None else None
         if not self.initialized:
             self._initialize(process_frame_stereo(gl, gr, self.cfg))
             self.trajectory.append(self.Tcw.copy())
@@ -437,7 +454,7 @@ class SlamSystem:
         self.frames_since_kf = 0
         self.stats["keyframes"] += 1
         self.stats.setdefault("kf_frames", []).append(len(self.trajectory))
-        if self.enable_objects and self._pending_detections is not None:
+        if self.enable_objects and (self._pending_detections is not None or self._pending_gray is not None):
             self._process_objects(self._pending_detections, self._pending_depth, frame)
         self._loop_closing(frame, 0)
 
@@ -463,7 +480,7 @@ class SlamSystem:
         self._kf_fresh = True
         self.stats["keyframes"] += 1
         self.stats.setdefault("kf_frames", []).append(len(self.trajectory))
-        if self.enable_objects and self._pending_detections is not None:
+        if self.enable_objects and (self._pending_detections is not None or self._pending_gray is not None):
             t0 = time.perf_counter()
             self._process_objects(self._pending_detections, self._pending_depth, frame)
             self.stats["obj_ms"].append((time.perf_counter() - t0) * 1e3)
@@ -601,11 +618,16 @@ class SlamSystem:
         `stats["det_ms"]`).  The draws come from CPU generators seeded as
         the reference seeds its keys: keyframe id (ground plane), 300 +
         keyframe id (Manhattan rounds), 1000 + keyframe id (pixel samples).
-        The host reads the ground plane once per keyframe."""
+        The host reads the ground plane once per keyframe.  Without
+        detections, the learned detector runs on the keyframe's gray image
+        (its boxes and masks stay on the device)."""
         if callable(detections):
             t_det = time.perf_counter()
             detections = detections()
             self.stats.setdefault("det_ms", []).append((time.perf_counter() - t_det) * 1e3)
+        if detections is None:
+            detections = detect_objects(*self.detector, self._pending_gray)
+            self._pending_gray = None
         cfg, dev = self.cfg, self.device
         Tcw = torch.from_numpy(self.Tcw).to(dev)
         sparse = self._sensor == "stereo"
@@ -637,12 +659,12 @@ class SlamSystem:
         pi_cam = plane_mod.transform(pi_w, Tcw)
         if self.enable_structures and not sparse:
             self._update_structures(depth, pi_cam, Tcw, kf_id)
-        bbox, label, prob, dvalid = (torch.as_tensor(np.asarray(detections[k]), dtype=dt).to(dev) for k, dt in (
+        bbox, label, prob, dvalid = (_det_tensor(detections[k], dt, dev) for k, dt in (
             ("bbox", torch.float32), ("label", torch.int32), ("prob", torch.float32), ("valid", torch.bool)))
         gen = torch.Generator().manual_seed(1000 + kf_id)
         if "ellipsoid_cam" in detections:  # measured ellipsoids (a 3D detector's boxes)
-            fit_e = torch.as_tensor(np.asarray(detections["ellipsoid_cam"]), dtype=torch.float32).to(dev)
-            fit_ok = torch.as_tensor(np.asarray(detections["fit_ok"])).to(dev)
+            fit_e = _det_tensor(detections["ellipsoid_cam"], torch.float32, dev)
+            fit_ok = _det_tensor(detections["fit_ok"], torch.bool, dev)
         else:
             if sparse:
                 xy = frame.feats.xy[None]
@@ -684,8 +706,7 @@ class SlamSystem:
             depth = keypoint_depth_image(frame.feats.xy, frame.depth, cfg.height, cfg.width)
         masks = {}
         if "mask" in detections:
-            masks = dict(det_masks=torch.as_tensor(np.asarray(detections["mask"])).to(self.device, torch.bool),
-                         det_assoc=obj_for_det)
+            masks = dict(det_masks=_det_tensor(detections["mask"], torch.bool, self.device), det_assoc=obj_for_det)
         inputs = gather_shape_inputs(self.objects, Tcw, depth, pi_cam, cfg.intr,
                                      torch.Generator().manual_seed(5000 + kf_id), **masks)
         self.objects = reconstruct_due_objects(self.objects, inputs, params, dec_cfg, Tcw, opt_cfg)

@@ -64,7 +64,7 @@ class TestPackage:
             "for m in mods: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'jaxlib' or m == 'qsp_slam_tpu' or m.startswith('qsp_slam_tpu.')]\n"
-            "print(json.dumps({'n': len(mods), 'bad': bad}))\n"
+            "print(json.dumps({'n': len(mods), 'bad': bad, 'mods': mods}))\n"
         )
         out = subprocess.run(
             [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
@@ -73,11 +73,15 @@ class TestPackage:
         got = json.loads(out.stdout.strip().splitlines()[-1])
         assert got["n"] >= 25, got
         assert got["bad"] == [], got["bad"]
+        for m in ("perception.detector2d", "perception.detector3d", "train_detector2d", "train_detector3d",
+                  "data.synthetic"):
+            assert f"qsp_slam_tpu_torch.{m}" in got["mods"], m
 
     def test_no_source_imports_reference(self):
-        """No module of the port names `jax` or `qsp_slam_tpu` in an import."""
+        """No module of the port, nor `chip_smoke.py`, names `jax` or
+        `qsp_slam_tpu` in an import."""
         offenders = []
-        for path in (REPO / "qsp_slam_tpu_torch").rglob("*.py"):
+        for path in [*(REPO / "qsp_slam_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
             for node in ast.walk(ast.parse(path.read_text())):
                 names = []
                 if isinstance(node, ast.Import):

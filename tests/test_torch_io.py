@@ -271,12 +271,13 @@ class TestRunTum:
     @pytest.mark.parametrize("flag", [["--detections", "d"], ["--mesh", "2"], ["--detector", "w.npz"],
                                       ["--save-frames", "f"]])
     def test_later_slices_refuse(self, flag):
-        """Later slices refuse; `--detections` is taken and the run goes on
-        to read the sequence (`tests/test_torch_structures.py` runs it)."""
+        """Later slices refuse; `--detections` and `--detector` are taken and
+        the run goes on to read the sequence (`tests/test_torch_structures.py`
+        and `tests/test_torch_detector2d.py` run them)."""
         from qsp_slam_tpu_torch import run_tum
 
-        with pytest.raises(FileNotFoundError if flag[0] == "--detections" else NotImplementedError,
-                           match="rgb.txt" if flag[0] == "--detections" else "slice"):
+        taken = flag[0] in ("--detections", "--detector")
+        with pytest.raises(FileNotFoundError if taken else NotImplementedError, match="rgb.txt" if taken else "slice"):
             run_tum.main(["unused", *flag, "--cpu"])
 
 

@@ -1,8 +1,11 @@
 """Parity of the port's stereo object path with the JAX package on the
 CPU: the scatter-add normal blocks and the dense pose solve, the object
 edge and the joint camera-point-object BA, `joint_ba_step`, the stereo
-object step with its local and global joint BA through `track_stereo`,
-the LiDAR proposals and `run_kitti --lidar-detections`.
+object step with its local and global joint BA through `run_kitti
+--detections --global-ba` on the stereo scene written in the KITTI layout,
+the LiDAR proposals and `run_kitti --lidar-detections` on the same
+sequence (both command lines at one configuration, so the reference
+compiles its stereo system once).
 
 The same seeded numpy inputs go through both packages; the reference's
 ground-plane draws are fed to the port through `draw`.  Tolerances:
@@ -34,7 +37,6 @@ from qsp_slam_tpu.perception import lidar_detect as jlidar
 from qsp_slam_tpu.slam import map as jmap
 from qsp_slam_tpu.slam import objects as jobj
 from qsp_slam_tpu.slam.joint_mapping import joint_ba_step as jjoint_ba_step
-from qsp_slam_tpu.slam.system import SlamSystem as JSlamSystem
 from qsp_slam_tpu.slam.tracking import TrackingConfig as JTrackingConfig
 from qsp_slam_tpu_torch import convert
 from qsp_slam_tpu_torch.core import lie as tlie
@@ -54,7 +56,6 @@ torch.set_num_threads(1)
 
 BASELINE = 0.12
 N_FRAMES = 12
-SYS = dict(kmax=16, nmax=2048, emax=16384, ba_window=6, omax=8, enable_loop_closing=False)
 
 
 def T(x) -> torch.Tensor:
@@ -192,18 +193,36 @@ class TestJointBA:
         np.testing.assert_allclose(got.Tcw.numpy(), np.asarray(ref.Tcw), atol=2e-3)
 
 
-def test_full_window_refines_early_keyframes_and_objects():
+def kitti_cli_configs(seq_dir):
+    """The configuration `run_kitti` builds for a sequence at 500 features
+    (the reference's and the port's), as its `main` does."""
+    from qsp_slam_tpu.data.kitti import KittiSequence as JKittiSequence
+    from qsp_slam_tpu.frontend.pyramid import PyramidConfig as JPyramidConfig
+    from qsp_slam_tpu_torch.frontend.pyramid import PyramidConfig
+
+    seq = JKittiSequence(str(seq_dir))
+    H, W = seq.load_gray_pair(0)[0].shape
+    intr = {k: float(v) for k, v in seq.intrinsics.items()}
+    common = dict(width=W, height=H, baseline=seq.baseline, depth_max=60.0, local_map_budget=8192, **intr)
+    return (TrackingConfig(orb=OrbConfig(num_features=500, pyramid=PyramidConfig(height=H, width=W)), **common),
+            JTrackingConfig(orb=JOrbConfig(num_features=500, pyramid=JPyramidConfig(height=H, width=W)), **common))
+
+
+def test_full_window_refines_early_keyframes_and_objects(stereo_seq):
     """tests/test_joint_system.py: `joint_ba_step(window=kmax)`, the global
     joint BA, refines keyframes and an object seen only by the earliest
     keyframes; the port's map and table against the reference's (poses
-    2e-3, points 1e-2, the object 2e-3, edge validity on all but 0.5%)."""
+    2e-3, points 1e-2, the object 2e-3, edge validity on all but 0.5%).
+    The configuration and capacities are those of the stereo command-line
+    runs below, whose global joint BA then reuses the reference's compiled
+    step."""
     rng = np.random.default_rng(5)
-    cfg, jcfg = TrackingConfig(), JTrackingConfig()
+    cfg, jcfg = kitti_cli_configs(stereo_seq / "seq")
     K, P = 10, 300
     gt_T = [np.asarray(jlie.exp_se3(jnp.asarray([0.15 * k, 0.02 * k, 0.0, 0.0, 0.01 * k, 0.0], jnp.float32)))
             for k in range(K)]
     pts_gt = rng.uniform([-2, -2, 3.0], [2, 2, 7.0], (P, 3)).astype(np.float32)
-    m = jmap.empty_map(kmax=16, nmax=512, emax=8192)
+    m = jmap.empty_map(kmax=16, nmax=4096, emax=32768)
     for k in range(K):
         noise = np.asarray(jlie.exp_se3(jnp.asarray(np.concatenate([rng.normal(0, 0.03, 3), rng.normal(0, 0.01, 3)]),
                                                     jnp.float32)))
@@ -216,7 +235,7 @@ def test_full_window_refines_early_keyframes_and_objects():
         uv = np.stack([cfg.fx * pc[:, 0] / pc[:, 2] + cfg.cx, cfg.fy * pc[:, 1] / pc[:, 2] + cfg.cy], -1)
         m = jmap.add_observations(m, jnp.int32(k), ids, jnp.asarray(uv + rng.normal(0, 0.3, (P, 2)), jnp.float32),
                                   jnp.full(P, -1.0), jnp.zeros(P, jnp.int32))
-    objects = jobj.empty_objects(4)
+    objects = jobj.empty_objects(32)
     e_gt = jnp.asarray([0.5, 0.3, 5.0, 0.0, 0.0, 0.0, 0.3, 0.3, 0.3])
     e_init = e_gt.at[0:3].add(jnp.asarray([0.15, -0.1, 0.2]))
     objects = objects._replace(ellipsoid=objects.ellipsoid.at[0].set(e_init), valid=objects.valid.at[0].set(True),
@@ -250,7 +269,8 @@ def test_full_window_refines_early_keyframes_and_objects():
 @pytest.fixture(scope="module")
 def stereo_frames():
     """tests/test_joint_system.py's stereo scene: rendered pairs (baseline
-    0.12 m) and the renderer's detections, from the reference package."""
+    0.12 m), the left depth and the renderer's detections, from the
+    reference package."""
     jcfg = JTrackingConfig(orb=JOrbConfig(num_features=500), baseline=BASELINE)
     scene = jrender.make_scene(num_objects=3, seed=2)
     base = jlie.exp_se3(jnp.asarray([0, 0, 0, 0.44, 0, 0], jnp.float32))
@@ -259,20 +279,100 @@ def stereo_frames():
     out = []
     for i in range(N_FRAMES):
         Tcw = np.asarray(jlie.exp_se3(jnp.asarray([0.045 * i, 0, 0, 0, 0, 0], jnp.float32)) @ base, np.float32)
-        gl, _, _ = jrender.render_scene(scene, jnp.asarray(Tcw), jcfg.intr)
+        gl, depth, _ = jrender.render_scene(scene, jnp.asarray(Tcw), jcfg.intr)
         gr, _, _ = jrender.render_scene(scene, jnp.asarray(shift @ Tcw), jcfg.intr)
         det = jrender.gt_detections(scene, jnp.asarray(Tcw), jcfg.intr)
-        out.append((np.asarray(gl), np.asarray(gr), {k: np.asarray(v) for k, v in det.items()}, Tcw))
+        out.append((np.asarray(gl), np.asarray(gr), {k: np.asarray(v) for k, v in det.items()}, Tcw,
+                    np.asarray(depth)))
     return scene, out
 
 
 @pytest.fixture(scope="module")
-def stereo_e2e(stereo_frames):
-    """Both packages through the stereo object scene (local joint BA at
-    keyframes), then one global BA each; the port on the reference's
-    ground-plane draws."""
-    js = JSlamSystem(JTrackingConfig(orb=JOrbConfig(num_features=500), baseline=BASELINE), **SYS)
-    ts = SlamSystem(TrackingConfig(orb=OrbConfig(num_features=500), baseline=BASELINE), device="cpu", **SYS)
+def stereo_seq(stereo_frames, tmp_path_factory):
+    """The stereo scene written in the KITTI layout `make_kitti` writes (PNG
+    pairs, calib with the TUM intrinsics and the 0.12 m baseline, times,
+    velodyne scans backprojected from the left depth), with the ground-truth
+    poses and the renderer's detections as per-frame caches.  Both command
+    lines below run on it with the same configuration, so the reference
+    compiles its stereo system once for the module."""
+    from PIL import Image
+
+    from qsp_slam_tpu.core.camera import backproject as jbackproject
+    from qsp_slam_tpu.data.io import save_detection_cache
+    from qsp_slam_tpu.data.make_kitti import TR_VELO_TO_CAM
+
+    root = tmp_path_factory.mktemp("stereo_seq")
+    seq = root / "seq"
+    for sub in ("image_0", "image_1", "velodyne", "detections"):
+        (seq / sub).mkdir(parents=True)
+    intr = JTrackingConfig().intr
+    fx, fy, cx, cy = (float(v) for v in intr)
+    P0 = np.array([[fx, 0, cx, 0], [0, fy, cy, 0], [0, 0, 1, 0]])
+    P1 = P0.copy()
+    P1[0, 3] = -fx * BASELINE
+    lines = [n + ": " + " ".join(f"{v:.9e}" for v in P.ravel()) for n, P in (("P0", P0), ("P1", P1), ("P2", P0),
+                                                                                ("P3", P1))]
+    (seq / "calib.txt").write_text("\n".join(lines + ["Tr: " + " ".join(f"{v:.9e}" for v in TR_VELO_TO_CAM.ravel())])
+                                   + "\n")
+    (seq / "times.txt").write_text("".join(f"{0.1 * i:.6e}\n" for i in range(N_FRAMES)))
+    Tr = np.eye(4, dtype=np.float32)
+    Tr[:3] = TR_VELO_TO_CAM
+    ys, xs = np.mgrid[0:480:2, 0:640:2]
+    uv = np.stack([xs.ravel(), ys.ravel()], -1).astype(np.float32)
+    poses = []
+    for i, (gl, gr, det, Tcw, depth) in enumerate(stereo_frames[1]):
+        for sub, g in (("image_0", gl), ("image_1", gr)):
+            Image.fromarray(g.astype(np.uint8)).save(seq / sub / f"{i:06d}.png")
+        save_detection_cache(str(seq / "detections" / f"{i}.npz"), det)
+        z = depth[::2, ::2].ravel()
+        ok = (z > 0.5) & (z < 80.0)
+        pc = np.asarray(jbackproject(jnp.asarray(uv[ok]), jnp.asarray(z[ok]), intr))
+        velo = np.concatenate([pc, np.ones((len(pc), 1), np.float32)], -1) @ np.linalg.inv(Tr).T
+        np.concatenate([velo[:, :3], np.zeros((len(pc), 1))], -1).astype(np.float32).tofile(
+            seq / "velodyne" / f"{i:06d}.bin")
+        poses.append(np.linalg.inv(Tcw)[:3].ravel())
+    np.savetxt(root / "poses.txt", np.stack(poses), fmt="%.6e")
+    return root
+
+
+CLI = ["--num-features", "500", "--kmax", "16", "--nmax", "4096", "--emax", "32768", "--cpu"]
+
+
+class Captured:
+    """Each package's `SlamSystem.run_global_ba` wrapped: the system and
+    its map and objects before the global BA are kept."""
+
+    def __init__(self):
+        from qsp_slam_tpu.slam import system as jsystem_mod
+
+        self.classes = {"jax": jsystem_mod.SlamSystem, "port": SlamSystem}
+        self.saved = {k: c.run_global_ba for k, c in self.classes.items()}
+        self.systems, self.before = {}, {}
+
+    def __enter__(self):
+        for name, cls in self.classes.items():
+            def wrapped(sysm, *a, _name=name, **k):
+                self.systems[_name] = sysm
+                self.before[_name] = (sysm.map_state, sysm.objects)
+                return self.saved[_name](sysm, *a, **k)
+            cls.run_global_ba = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        for name, cls in self.classes.items():
+            cls.run_global_ba = self.saved[name]
+
+
+@pytest.fixture(scope="module")
+def stereo_e2e(stereo_seq):
+    """Both packages' `run_kitti --detections --global-ba` on the stereo
+    scene (local joint BA at keyframes), then one global BA each; the port
+    on the reference's ground-plane draws."""
+    from qsp_slam_tpu import run_kitti as jrun
+    from qsp_slam_tpu_torch import run_kitti as trun
+
+    flags = [str(stereo_seq / "seq"), "--poses", str(stereo_seq / "poses.txt"), "--detections",
+             str(stereo_seq / "seq" / "detections"), "--global-ba", *CLI]
     calls = []
     saved = {k: getattr(system_mod, k) for k in ("estimate_ground_plane_points", "joint_ba_step")}
 
@@ -284,16 +384,14 @@ def stereo_e2e(stereo_frames):
         system_mod.estimate_ground_plane_points = functools.partial(tgp.estimate_ground_plane_points,
                                                                     draw=jax_plane_draw)
         system_mod.joint_ba_step = counted
-        for gl, gr, det, _ in stereo_frames[1]:
-            js.track_stereo(gl, gr, det)
-            ts.track_stereo(gl, gr, det)
-        before = (ts.map_state, ts.objects, js.map_state, js.objects)
-        js.run_global_ba()
-        ts.run_global_ba()
+        with Captured() as cap:
+            jrun.main(flags)
+            trun.main(flags)
     finally:
         for k, v in saved.items():
             setattr(system_mod, k, v)
-    return js, ts, calls, before
+    js, ts = cap.systems["jax"], cap.systems["port"]
+    return js, ts, calls, (*cap.before["port"], *cap.before["jax"])
 
 
 def test_track_stereo_with_detections_matches_the_reference(stereo_e2e):
@@ -310,12 +408,13 @@ def test_track_stereo_with_detections_matches_the_reference(stereo_e2e):
 
 
 def test_joint_ba_runs_locally_and_globally(stereo_e2e, stereo_frames):
-    """The local joint BA ran at keyframes with objects (window 6) and the
-    global BA went joint (window kmax); the map after it matches the
-    reference's (poses 2e-3 m, object centres 0.02 m), and an object lies
-    within 0.35 m of the truth (tests/test_joint_system.py's bound)."""
+    """The local joint BA ran at keyframes with objects (the command line's
+    window, 8) and the global BA went joint (window kmax); the map after it
+    matches the reference's (poses 2e-3 m, object centres 0.02 m), and an
+    object lies within 0.35 m of the truth (tests/test_joint_system.py's
+    bound)."""
     js, ts, calls, _ = stereo_e2e
-    assert 6 in calls and calls[-1] == ts.kmax == 16
+    assert ts.ba_window in calls and calls[-1] == ts.kmax == 16
     n = int(ts.map_state.num_kfs)
     np.testing.assert_allclose(ts.map_state.kf_Tcw[:n].numpy(), np.asarray(js.map_state.kf_Tcw)[:n], atol=2e-3)
     valid = ts.objects.valid.numpy()
@@ -372,21 +471,19 @@ def test_lidar_detections(rng, with_car):
     assert b[0] <= u <= b[2] and b[1] <= v <= b[3]
 
 
-def test_make_kitti_and_run_kitti_with_lidar_detections(tmp_path):
-    """The reference's fabricated drive (4 frames at 192x624) into both
-    command lines with `--lidar-detections --global-ba`: the same summary
-    (the port on the reference's ground draws), the LiDAR provider called
-    at keyframes only, its time in the report."""
+def test_make_kitti_and_run_kitti_with_lidar_detections(stereo_seq, stereo_e2e, tmp_path):
+    """The stereo scene in `make_kitti`'s layout (its first 6 frames, at the
+    configuration of `stereo_e2e`, which compiled the reference's system)
+    into both command lines with `--lidar-detections --global-ba`: the
+    same summary (the port on the reference's ground draws), the LiDAR
+    provider called at keyframes only, its time in the report."""
     import json
 
     from qsp_slam_tpu import run_kitti as jrun
-    from qsp_slam_tpu.data import make_kitti as jmake
     from qsp_slam_tpu_torch import run_kitti as trun
 
-    root = tmp_path / "seq"
-    jmake.main([str(root), "--frames", "4", "--poses-out", str(tmp_path / "poses.txt"), "--cpu"])
-    flags = ["--poses", str(tmp_path / "poses.txt"), "--lidar-detections", "--global-ba", "--num-features", "500",
-             "--kmax", "16", "--nmax", "4096", "--emax", "32768", "--cpu"]
+    root = stereo_seq / "seq"
+    flags = ["--poses", str(stereo_seq / "poses.txt"), "--lidar-detections", "--global-ba", "--max-frames", "6", *CLI]
     ref = jrun.main([str(root), *flags])
     saved = system_mod.estimate_ground_plane_points, tlidar.lidar_detections
     try:

@@ -114,12 +114,46 @@ def test_run_kitti_cli(drive, capsys):
 @pytest.mark.parametrize("flag", [["--detections", "d"], ["--lidar-detections"], ["--detector3d", "p.npz"],
                                   ["--mesh", "2"]])
 def test_run_kitti_later_slices_refuse(flag):
-    """The learned 3D detector (slice 8) and the sharded BA (slice 9)
-    refuse; the object flags are taken and the run goes on to read the
-    sequence (`tests/test_torch_joint.py` runs them end to end)."""
-    if flag[0] in ("--detections", "--lidar-detections"):
+    """The sharded BA (slice 9) refuses; the object flags and the learned 3D
+    detector are taken and the run goes on to read the sequence
+    (`tests/test_torch_joint.py` and `test_run_kitti_detector3d` run them
+    end to end)."""
+    if flag[0] in ("--detections", "--lidar-detections", "--detector3d"):
         with pytest.raises(FileNotFoundError, match="calib.txt"):
             run_kitti.main(["unused", *flag, "--cpu"])
         return
     with pytest.raises(NotImplementedError, match="slice"):
         run_kitti.main(["unused", *flag, "--cpu"])
+
+
+def test_run_kitti_detector3d(drive, tmp_path, capsys):
+    """`run_kitti --detector3d PARAMS_NPZ` (weights written by the JAX
+    package at its default width, the heatmap bias raised so that the
+    random init fires): implies `--lidar-detections`, and the learned
+    detector's dict is computed once per keyframe from the scan and feeds
+    the object step's measured ellipsoids."""
+    import jax
+    import jax.numpy as jnp
+
+    from qsp_slam_tpu.perception import detector3d as j3d
+    from qsp_slam_tpu_torch.perception import detector3d as t3d
+
+    jp = j3d.init_detector3d(jax.random.PRNGKey(0), j3d.Detector3DConfig())
+    j3d.save_detector3d(str(tmp_path / "d3d.npz"), {**jp, "hm_b": jnp.full(1, 1.5)}, j3d.Detector3DConfig())
+    calls, real = [], t3d.lidar_detections_learned
+
+    def learned(*a, **k):
+        calls.append(real(*a, **k))
+        return calls[-1]
+
+    t3d.lidar_detections_learned = learned
+    try:
+        out = run_kitti.main([str(drive / "seq"), "--poses", str(drive / "poses.txt"), "--detector3d",
+                              str(tmp_path / "d3d.npz"), "--save-dir", str(tmp_path / "out"), "--num-features",
+                              "500", "--kmax", "16", "--nmax", "4096", "--emax", "32768", "--cpu"])
+    finally:
+        t3d.lidar_detections_learned = real
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == json.loads(json.dumps(out))
+    report = json.loads((tmp_path / "out" / "report.json").read_text())
+    assert out["keyframes"] >= 2 and report["det_keyframes"] == len(calls) == out["keyframes"]
+    assert all(set(d) >= {"ellipsoid_cam", "fit_ok"} and d["ellipsoid_cam"].shape == (8, 9) for d in calls)

@@ -302,8 +302,8 @@ def test_keypoint_depth_image_last_keypoint_wins():
 
 def test_run_synthetic_objects_on_the_cpu(capsys):
     """`run_synthetic 4 --objects --cpu`: the JAX command line's keys, a
-    tracked orbit and reconstructed shapes; `--detector` names its slice.
-    (Two LM trips per shape step keep the CPU run short; the card runs the
+    tracked orbit and reconstructed shapes (`--detector`:
+    `tests/test_torch_detector2d.py`).  (Two LM trips per shape step keep the CPU run short; the card runs the
     command at its defaults.)"""
     from qsp_slam_tpu_torch import run_synthetic
 
@@ -315,8 +315,6 @@ def test_run_synthetic_objects_on_the_cpu(capsys):
         assert key in out, key
     assert out["backend"] == "cpu" and out["ate_rmse_m"] < 0.05 and out["shapes_reconstructed"] >= 1
     assert capsys.readouterr().out.strip().startswith("{")
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        run_synthetic.main(["5", "--detector", "--cpu"])
 
 
 def test_shape_entry_points_need_cuda_unless_cpu_is_named(decoder):

@@ -326,10 +326,21 @@ class TestLocalMapping:
 
 
 class TestSystemScope:
-    @pytest.mark.parametrize("kw", [dict(detector=("p", "c")), dict(mesh=object())])
+    @pytest.mark.parametrize("kw", [dict(mesh=object())])
     def test_later_slices_raise(self, kw):
         with pytest.raises(NotImplementedError, match="slice"):
             SlamSystem(ttr.TrackingConfig(), kmax=4, nmax=64, emax=256, device="cpu", **kw)
+
+    def test_detector_is_taken(self):
+        """The learned detector (slice 8) is a system field now: its params
+        land on the system's device (`tests/test_torch_detector2d.py`
+        drives detect-online)."""
+        from qsp_slam_tpu_torch.perception.detector2d import DetectorConfig, init_detector
+
+        cfg = DetectorConfig(widths=(4, 4, 4))
+        sysm = SlamSystem(ttr.TrackingConfig(), kmax=4, nmax=64, emax=256, device="cpu",
+                          detector=(init_detector(torch.Generator().manual_seed(0), cfg, device="cpu"), cfg))
+        assert sysm.detector[1] == cfg and all(v.device.type == "cpu" for v in sysm.detector[0].values())
 
     def test_loop_closing_flag_builds_a_looping_system(self, world):
         """`enable_loop_closing=True` (the default, as in the reference)

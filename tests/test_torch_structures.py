@@ -1,8 +1,9 @@
 """Parity of the port's RGB-D object path with the JAX package on the CPU:
 the depth ellipsoid fit, Manhattan planes, relations, symmetry, the
 support-aware refinement, the table scenes, the object evaluation, the
-RGB-D object step through `track_rgbd`, its checkpoints and `run_tum
---detections`; and the object-table cases of the reference's object,
+RGB-D object step through `track_rgbd`, its checkpoints, `run_tum
+--detections` and detect-online with the learned 2D detector; and the
+object-table cases of the reference's object,
 lifecycle and velocity tests.
 
 The same seeded numpy inputs go through both packages; the reference's
@@ -828,6 +829,71 @@ def test_jax_structures_session_resumes_in_the_port(e2e, tmp_path):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     np.testing.assert_array_equal(port.ground_plane, js.ground_plane)
     assert port._gp_count == js._gp_count and port._sensor == "rgbd"
+
+
+@pytest.fixture(scope="module")
+def online(table_frames):
+    """Detect-online (slice 8): the table scene through both systems with
+    no detections and a learned 2D detector at widths (8, 12, 16) on
+    240x320 (mean-pooled from the 480x640 frames; the reference's init
+    with the heatmap bias raised to 1, so that it fires at every
+    keyframe), at `e2e`'s configuration, whose compiled reference
+    functions it reuses; the port on the reference's draws.  -> the
+    systems and every detection of each."""
+    from qsp_slam_tpu.perception import detector2d as jdet
+    from qsp_slam_tpu_torch.convert import detector2d_params_from_numpy
+    from qsp_slam_tpu_torch.perception import detector2d as tdet
+
+    jcfg = jdet.DetectorConfig(widths=(8, 12, 16), input_hw=(240, 320))
+    jp = jdet.init_detector(jax.random.PRNGKey(0), jcfg)
+    jp["hm_b"] = jnp.full_like(jp["hm_b"], 1.0)
+    tcfg = tdet.DetectorConfig(widths=(8, 12, 16), input_hw=(240, 320))
+    tp = detector2d_params_from_numpy({k: np.asarray(v) for k, v in jp.items()}, device="cpu")
+    js = JSlamSystem(JTrackingConfig(orb=JOrbConfig(num_features=500)), detector=(jp, jcfg), **SYS)
+    ts = SlamSystem(TrackingConfig(orb=OrbConfig(num_features=500)), detector=(tp, tcfg), device="cpu", **SYS)
+    ref, got = [], []
+    real_j, real_t = jdet.detect_objects, tdet.detect_objects
+
+    def j_detect(*a):
+        out = real_j(*a)
+        ref.append({k: np.asarray(v) for k, v in out.items()})
+        return out
+
+    def t_detect(*a):
+        out = real_t(*a)
+        got.append({k: v.numpy() for k, v in out.items()})
+        return out
+
+    jdet.detect_objects = j_detect
+    try:
+        with patched(reference_draws() | {"detect_objects": t_detect}):
+            for g, d, _ in table_frames[2]:
+                js.track_rgbd(g, d, None)
+                ts.track_rgbd(g, d, None)
+    finally:
+        jdet.detect_objects = real_j
+    return js, ts, ref, got
+
+
+def test_detect_online_matches_the_reference(online):
+    """The same keyframes; one detection per keyframe in each package,
+    boxes within 1e-4 px and labels, `valid` and masks exact; the same
+    object slots, labels and observation counts, centres within 1e-3 m."""
+    js, ts, ref, got = online
+    assert ts.stats["kf_frames"] == js.stats["kf_frames"] and len(ts.stats["kf_frames"]) >= 3
+    assert len(got) == len(ref) == len(ts.stats["kf_frames"])
+    for t, j in zip(got, ref):
+        assert j["valid"].any()
+        np.testing.assert_allclose(t["bbox"], j["bbox"], atol=1e-4)
+        for k in ("label", "valid", "mask"):
+            np.testing.assert_array_equal(t[k], j[k], k)
+    for name in ("valid", "label", "obs_count"):
+        np.testing.assert_array_equal(getattr(ts.objects, name).numpy(), np.asarray(getattr(js.objects, name)), name)
+    valid = ts.objects.valid.numpy()
+    assert valid.sum() >= 1
+    np.testing.assert_allclose(ts.objects.ellipsoid.numpy()[valid, :3], np.asarray(js.objects.ellipsoid)[valid, :3],
+                               atol=1e-3)
+    np.testing.assert_allclose(np.stack(ts.trajectory), np.stack(js.trajectory), atol=1e-4)
 
 
 def test_uint16_depth_reaches_the_object_step_in_png_units(table_frames):
