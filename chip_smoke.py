@@ -162,8 +162,32 @@ Phases (any failure exits non-zero and prints no result line):
      `detect_objects_3d` on a 32768-point scan and a training step timed
      as in 19; then `run_kitti --detector3d` on phase 9's drive: ATE <
      0.6 m, RPE < 0.25 m, >= 4 keyframes, >= 1 object, K1 once per frame.
-Paths 4, 7, 8, 9, 10, 11, 13, 14, 16, 18, 19 and 20 each zero the launch counters just
-before and read them just after.  With `--profile DIR`: torch.profiler tables in DIR
+ 21. distribution at run_kitti's whole-map capacity: `make_ba_problem(128
+     cameras, 16384 points, 8 observations each)` with 32 measured objects
+     through `map_sharded_ba` and `map_sharded_joint_ba` (10 LM trips) as
+     one rank (NCCL) and as two ranks sharing the card (gloo), each rank a
+     process of `spawn_ranks`: the world sizes agree (`DIST_GAPS`: cost,
+     poses, the points' 99.9th percentile and the most a point with 4 or
+     more inlier observations moves), both
+     ranks return the same bits and the cost falls; ms per LM trip by
+     CUDA events, collective bytes per trip, backend and peak memory per
+     rank.  Then `run_tum --global-ba --mesh 2` on phase 7's sequence and
+     `run_kitti --detections --global-ba --mesh 2` on phase 9's drive with
+     phase 14's perfect 3D detector's detections (saved as caches), each
+     against the one-device command: phases 7's and 9's ATE gates (the
+     KITTI one on the keyframes too), the same keyframe count, for the TUM
+     map (the point branch) keyframe ATE within max(0.02 m, half) and
+     keyframe translations within 0.05 m (the reference's test bars), the
+     joint branch sharded, K1 once per frame on each rank, both ranks'
+     final maps bitwise equal (their SHA-256).  The one-device drive's map
+     before its global BA goes through the sharded joint BA on one rank
+     and on two, which agree within `DIST_GAPS` with ranks bitwise equal
+     (the reference's sharded joint BA parts from its single-device one on
+     this drive, so the two commands' keyframes are compared only there);
+     then the dry run over two ranks on the card.
+Paths 4, 7, 8, 9, 10, 11, 13, 14, 16, 18, 19, 20 and 21 each zero the launch counters just
+before and read them just after (phase 21's ranks count in their own processes and
+report at their end).  With `--profile DIR`: torch.profiler tables in DIR
 of main-path frames 12-19, of KITTI-drive frames 12-19 (phase 9's
 configuration) and of monocular frames 12-19 (phase 11's), the device's busy share of each window, each kernel's
 device time per launch there, and each kernel's device time per call alone
@@ -193,7 +217,13 @@ from qsp_slam_tpu_torch.core import lie, quadric  # noqa: E402
 from qsp_slam_tpu_torch.data import make_kitti, make_tum, native_loader  # noqa: E402
 from qsp_slam_tpu_torch.data.make_kitti import drive_scene  # noqa: E402
 from qsp_slam_tpu_torch.data.kitti import KittiSequence  # noqa: E402
-from qsp_slam_tpu_torch.data.io import load_detection_cache, load_trajectory_tum  # noqa: E402
+from qsp_slam_tpu_torch.data.io import (  # noqa: E402
+    load_detection_cache,
+    load_map,
+    load_trajectory_tum,
+    save_detection_cache,
+)
+from qsp_slam_tpu_torch.data.synthetic import make_ba_problem  # noqa: E402
 from qsp_slam_tpu_torch.data.render import (  # noqa: E402
     gt_detections,
     make_room,
@@ -225,6 +255,9 @@ from qsp_slam_tpu_torch.ops.fast_nms import (  # noqa: E402
     fast_score_nms_pyramid_plain,
 )
 from qsp_slam_tpu_torch.ops.hamming import hamming_packed, hamming_packed_plain  # noqa: E402
+from qsp_slam_tpu_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
+from qsp_slam_tpu_torch.parallel.multihost import spawn_ranks  # noqa: E402
+from qsp_slam_tpu_torch.parallel.replay import problem_arrays, save_problems  # noqa: E402
 from qsp_slam_tpu_torch.perception import detector2d as det2d  # noqa: E402
 from qsp_slam_tpu_torch.perception import detector3d as det3d  # noqa: E402
 from qsp_slam_tpu_torch.slam import system as system_mod  # noqa: E402
@@ -293,6 +326,26 @@ DET2D_BOX_GAP, DET2D_MASK_AGREE = 0.5, 0.999  # phase 19 card vs CPU: box px, ma
 DET3D_STEPS = 800  # train_detector3d's default
 DET3D_BARS = {"recall": 0.85, "fp_per_scan": 0.75, "centre_m": 0.6, "size_m": 0.6, "yaw_deg": 20.0}
 DET_STEP_GAP = 1e-4  # one training step card vs CPU, relative
+# Phase 21: the sharded BA at run_kitti's whole-map capacity (kmax 128, nmax
+# 16384, emax 131072) with stereo edges, as a KITTI map has (monocular
+# edges leave the scale free, and world sizes then part along it), 5%
+# outliers, 32 objects (omax) with 16-slot measurement rings, 10 LM
+# trips.  World sizes 1 and 2 sum in another order, and after 10 trips
+# this problem is determined to about 1e-3 m in f32: on the CPU
+# (`tools/dist_world_gap.py`) the costs agree to 1.3e-7, the poses to
+# 1.0e-3 m, the points to 1.5e-3 m (median) and 4.2e-3 m (99.9th
+# percentile), one point seen three times by outliers 7.5 m apart; the
+# points with 4 or more observations 6.2e-3 m at most.  Gates: cost
+# (relative), poses and object poses (m), the points' 99.9th percentile
+# (m), and the most any point with 4 or more inlier observations moves
+# (m; on the drive's map, whose outliers carry no label, 4 or more
+# observations), so that a fault in a few well-constrained points cannot
+# pass.
+DIST_PROBLEM = dict(num_cams=128, num_points=16384, obs_per_point=8, stereo=True, seed=0)
+DIST_BF = 0.08 * 520.9  # the problem's baseline (m) times fx (px)
+DIST_OBJECTS, DIST_RING, DIST_ITERS = 32, 16, 10
+DIST_GAPS = {"cost": 1e-5, "poses": 5e-3, "points_p999": 1e-2, "points_max_4_seen": 1e-2}
+REPLAY = "qsp_slam_tpu_torch.parallel.replay:main"
 
 
 def log(*a):
@@ -2091,6 +2144,272 @@ def run_slam(cfg, frames, device, warmup: int = 10):
     return sysm, wall[warmup:]
 
 
+def dist_problems(path: Path) -> np.ndarray:
+    """Phase 21's problems at full capacity (stereo edges): the point BA,
+    and the joint BA with 32 objects, each measured from 4 random keyframes (its true
+    camera-object transform), started 0.1 m off.  Returns each point's
+    number of inlier observations."""
+    prob = make_ba_problem(**DIST_PROBLEM)
+    rng = np.random.default_rng(5)
+    O, M, K = DIST_OBJECTS, DIST_RING, DIST_PROBLEM["num_cams"]
+    T_wo = np.tile(np.eye(4, dtype=np.float32), (O, 1, 1))
+    T_wo[:, :3, 3] = rng.uniform([-2.5, -1.5, -2.5], [2.5, 1.5, 2.5], (O, 3))
+    T_oc = np.tile(np.eye(4, dtype=np.float32), (O, M, 1, 1))
+    kf = np.full((O, M), -1, np.int32)
+    for o in range(O):
+        for j, k in enumerate(rng.choice(K, 4, replace=False)):
+            T_oc[o, j] = np.linalg.inv(T_wo[o]) @ np.linalg.inv(prob.Tcw_gt[k])
+            kf[o, j] = k
+    T_wo_init = T_wo.copy()
+    T_wo_init[:, :3, 3] += rng.normal(0, 0.1, (O, 3))
+    objects = {"Tow": np.linalg.inv(T_wo_init).astype(np.float32), "obj_fixed": np.zeros(O, bool),
+               "obj_cam_idx": np.clip(kf, 0, None).reshape(-1),
+               "obj_obj_idx": np.repeat(np.arange(O, dtype=np.int32), M),
+               "obj_T_oc": T_oc.reshape(-1, 4, 4), "obj_valid": (kf >= 0).reshape(-1)}
+    save_problems(path, [{"name": "map", "kind": "map_ba", "prefix": "p", "iters": DIST_ITERS, "time": True},
+                         {"name": "joint", "kind": "map_joint_ba", "prefix": "p", "iters": DIST_ITERS,
+                          "time": True}], {"p": {**problem_arrays(prob, DIST_BF), **objects}})
+    inliers = prob.valid & ~prob.is_outlier
+    return np.bincount(prob.pt_idx[inliers], minlength=prob.points_init.shape[0])
+
+
+def rank_launches(stderr: str) -> list:
+    """The kernel launches each rank reported at its end (multihost)."""
+    out = {}
+    for line in stderr.splitlines():
+        if line.startswith("[rank ") and "] launches " in line:
+            out[int(line[6:line.index("/")])] = json.loads(line.split("] launches ", 1)[1])
+    return [out[r] for r in sorted(out)]
+
+
+def cli_mesh_run(main_fn, argv: list) -> tuple[dict, list, list, float]:
+    """A command line with `--mesh 2`: it starts its two ranks; their stderr
+    (which it copies to its own) gives each rank's launches and its final
+    map's SHA-256."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(buf):
+        out = main_fn(argv + ["--mesh", "2"])
+    wall = time.perf_counter() - t0
+    sys.stderr.write(buf.getvalue())
+    digests = [line.split("] map ", 1)[1] for line in buf.getvalue().splitlines()
+               if line.startswith("[rank ") and "] map " in line]
+    return out, rank_launches(buf.getvalue()), digests, wall
+
+
+def drive_joint_world_gap(tmp: str, state: dict, gt_Tcw: np.ndarray) -> dict:
+    """The one-device `run_kitti` run's map and objects before its global
+    BA through the sharded joint BA on one rank (this process) and on two
+    (gloo ranks sharing the card): the world sizes agree within
+    `DIST_GAPS` (keyframe and object positions, the points' 99.9th
+    percentile and the most a point with 4 or more observations moves) and
+    the ranks return the same bits.  The keyframe ATE before and after it
+    and after the single-device joint BA on the same map are reported, not
+    gated: the reference's sharded joint BA parts from its single-device
+    one on this drive (`tools/dist_joint_gap.py`)."""
+    from qsp_slam_tpu_torch.parallel.mesh import make_mesh
+    from qsp_slam_tpu_torch.slam.distributed_mapping import global_joint_ba_sharded
+    from qsp_slam_tpu_torch.slam.joint_mapping import joint_ba_step
+
+    m, o, cfg = state["m"], state["o"], state["cfg"]
+    n = int(m.num_kfs)
+    live = m.kf_valid[:n].cpu().numpy()
+    gt_kf = gt_Tcw[np.asarray(state["kf_frames"])][live]
+
+    def kf_ate(kf_Tcw) -> float:
+        return float(ate_rmse(np.asarray(kf_Tcw)[:n][live], gt_kf))
+
+    m1, o1 = global_joint_ba_sharded(m, o, cfg, make_mesh(1, axis="map", device="cuda"))
+    ms, _ = joint_ba_step(m, o, cfg, window=m.kf_Tcw.shape[0])
+    arrays = {f: getattr(m, f).cpu().numpy() for f in m._fields}
+    arrays.update({f"obj/{f}": getattr(o, f).cpu().numpy() for f in o._fields})
+    arrays.update(intr=np.zeros(4, np.float32), bf=np.float32(0))
+    camera = {"fx": cfg.fx, "fy": cfg.fy, "cx": cfg.cx, "cy": cfg.cy, "baseline": cfg.baseline}
+    path, out_dir = Path(tmp, "drive_map.npz"), Path(tmp, "drive_map_w2")
+    save_problems(path, [{"name": "drive", "kind": "global_joint_ba", "prefix": "d", "iters": 10,
+                          "camera": camera}], {"d": arrays})
+    spawn_ranks(2, [str(path), str(out_dir)], target=REPLAY, timeout=600)
+    outs = [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(2)]
+    same = all(np.array_equal(outs[1][k], outs[0][k]) for k in outs[0])
+    two = outs[0]
+    ob_ok = (m.ob_valid & (m.ob_kf < n)).cpu().numpy()
+    obs = np.bincount(m.ob_pt.cpu().numpy()[ob_ok], minlength=m.pt_xyz.shape[0])
+    pt_ok = m.pt_valid.cpu().numpy()
+    d_pt = np.linalg.norm(m1.pt_xyz.cpu().numpy().astype(np.float64) - two["drive/pt_xyz"], axis=1)[pt_ok]
+    obj_ok = o.valid.cpu().numpy()
+    gaps = {"keyframes": float(np.abs(m1.kf_Tcw.cpu().numpy()[:n] - two["drive/kf_Tcw"][:n]).max()),
+            "objects": float(np.abs(o1.ellipsoid.cpu().numpy()[obj_ok, :3]
+                                    - two["drive/ellipsoid"][obj_ok, :3]).max(initial=0.0)),
+            "points_p999": float(np.percentile(d_pt, 99.9)),
+            "points_max_4_observations": float(d_pt[obs[pt_ok] >= 4].max()), "points_max": float(d_pt.max())}
+    res = {"gaps": gaps, "ranks_identical": same, "points": int(pt_ok.sum()), "objects": int(obj_ok.sum()),
+           "kf_ate_m": {"before": kf_ate(m.kf_Tcw.cpu().numpy()), "single_joint": kf_ate(ms.kf_Tcw.cpu().numpy()),
+                        "sharded_world1": kf_ate(m1.kf_Tcw.cpu().numpy()),
+                        "sharded_world2": kf_ate(two["drive/kf_Tcw"])}}
+    log(f"phase 21 the drive's map before its global BA ({n} keyframes, {res['points']} points, {res['objects']} "
+        f"objects), sharded joint BA world 1 vs world 2: {gaps}, ranks identical {same}; keyframe ATE {res['kf_ate_m']}")
+    checks = [("keyframes", DIST_GAPS["poses"]), ("objects", DIST_GAPS["poses"]),
+              ("points_p999", DIST_GAPS["points_p999"]), ("points_max_4_observations", DIST_GAPS["points_max_4_seen"])]
+    if not same or any(not gaps[k] <= bound for k, bound in checks):
+        raise AssertionError(f"the drive's sharded joint BA at world 1 and 2: {res}")
+    return res
+
+
+def distribution_path(tmp: str) -> dict:
+    """Phase 21: (a) the map-sharded point and joint BA at run_kitti's
+    capacity as one rank (NCCL) and as two ranks sharing the card (gloo);
+    (b) `run_tum --global-ba --mesh 2` on phase 7's sequence (the point
+    branch) and `run_kitti --global-ba --mesh 2` on phase 9's drive with
+    phase 14's perfect 3D detector's detections (the joint branch), each
+    against the same command on one device, and the one-device drive's map
+    through the sharded joint BA on one rank and on two; (c) the dry run
+    over two ranks."""
+    t_phase = time.perf_counter()
+    res = {}
+    probs = Path(tmp, "dist_problems.npz")
+    inliers = dist_problems(probs)
+    runs = {}
+    for world in (1, 2):
+        out_dir = Path(tmp, f"dist_w{world}")
+        t0 = time.perf_counter()
+        lines = [r.json() for r in spawn_ranks(world, [str(probs), str(out_dir)], target=REPLAY, timeout=600)]
+        wall = time.perf_counter() - t0
+        outs = [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(world)]
+        same = all(np.array_equal(o[k], outs[0][k]) for o in outs[1:] for k in outs[0])
+        runs[world] = {"lines": lines, "out": outs[0], "ranks_identical": same, "wall_s": wall}
+        for case in ("map", "joint"):
+            f = [ln["cases"][case] for ln in lines]
+            log(f"phase 21 {case}-sharded BA at K 128, N 16384, {DIST_ITERS} trips, world {world} "
+                f"({lines[0]['backend']}): {max(x['ms_per_trip'] for x in f):.3f} ms per LM trip by events (max over "
+                f"ranks; call {max(x['ms'] for x in f):.1f} ms, entry {max(x['ms_entry'] for x in f):.1f} ms), "
+                f"{f[0]['collective_bytes_per_trip']} collective bytes per trip, peak "
+                f"{[round(x['peak_mb'], 1) for x in f]} MB per rank, cost {f[0]['cost0']:.2f} -> "
+                f"{float(outs[0][case + '/cost']):.2f}; ranks identical {same}; spawn to exit {wall:.1f} s")
+    one, two = runs[1]["out"], runs[2]["out"]
+    gaps, checks = {}, []
+    for k in one:
+        d = np.abs(one[k].astype(np.float64) - two[k])
+        if k.endswith("/cost"):
+            gaps[k] = float(d) / abs(float(one[k]))
+            checks.append((k, gaps[k], DIST_GAPS["cost"]))
+        elif k.endswith("/points"):
+            per_point = np.linalg.norm(d, axis=1)
+            gaps[k] = {q: float(np.percentile(per_point, q)) for q in (50, 99, 99.9)} | {
+                "max": float(per_point.max()), "max_4_inliers": float(per_point[inliers >= 4].max()),
+                "max_by_inliers": {int(c): float(per_point[inliers == c].max()) for c in np.unique(inliers)}}
+            checks.append((k, gaps[k][99.9], DIST_GAPS["points_p999"]))
+            checks.append((k + " (4+ inliers, max)", gaps[k]["max_4_inliers"], DIST_GAPS["points_max_4_seen"]))
+        else:
+            gaps[k] = float(d.max())
+            checks.append((k, gaps[k], DIST_GAPS["poses"]))
+    res["solve"] = {w: {"backend": r["lines"][0]["backend"], "cases": [ln["cases"] for ln in r["lines"]],
+                        "ranks_identical": r["ranks_identical"]} for w, r in runs.items()}
+    res["solve_gaps"] = gaps
+    log(f"phase 21 world 1 vs world 2: {gaps}")
+    for k, d, bound in checks:
+        if not d <= bound:
+            raise AssertionError(f"sharded BA world 1 and 2 disagree on {k}: {d} > {bound}")
+    falls = all(float(runs[w]["out"][f"{c}/cost"]) < runs[w]["lines"][0]["cases"][c]["cost0"]
+                for w in (1, 2) for c in ("map", "joint"))
+    if not (runs[2]["ranks_identical"] and falls and runs[1]["lines"][0]["backend"] == "nccl"
+            and runs[2]["lines"][0]["backend"] == ("nccl" if torch.cuda.device_count() >= 2 else "gloo")):
+        raise AssertionError(f"sharded BA: ranks identical {runs[2]['ranks_identical']}, cost falls {falls}, "
+                             f"backends {[runs[w]['lines'][0]['backend'] for w in (1, 2)]}")
+
+    # (b) the command lines, single device against two ranks.
+    seq_dir = os.path.join(tmp, "tum_mesh")
+    make_tum.main([seq_dir, "--frames", str(FRAMES)])
+    conf = os.path.join(tmp, "tum_mesh.yaml")
+    Path(conf).write_text("ORBextractor.nFeatures: 4000\n")
+    base = [seq_dir, "--config", conf, "--global-ba"]
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    single = run_tum.main(base + ["--save-dir", os.path.join(tmp, "tum_single")])
+    single_s = time.perf_counter() - t0
+    single_counts = read_counts()
+    mesh, launches, digests, mesh_s = cli_mesh_run(run_tum.main,
+                                                   base + ["--save-dir", os.path.join(tmp, "tum_mesh2")])
+    maps = [load_map(os.path.join(tmp, d, "map.npz")) for d in ("tum_single", "tum_mesh2")]
+    n_kf = int(maps[0]["num_kfs"])
+    kf_gap = float(np.abs(maps[0]["kf_Tcw"][:n_kf, :3, 3] - maps[1]["kf_Tcw"][:n_kf, :3, 3]).max())
+    res["run_tum"] = {"single": single, "mesh": mesh, "launches_per_rank": launches, "single_launches": single_counts,
+                      "kf_translation_gap_m": kf_gap, "map_digests": digests, "single_s": single_s, "mesh_s": mesh_s}
+    log(f"phase 21 run_tum --global-ba on phase 7's sequence ({FRAMES} frames, 4000 features): one device "
+        f"{single_s:.1f} s, ATE {single['ate_rmse_m']:.5f} m, keyframe ATE {single.get('kf_ate_rmse_m')}, "
+        f"{single['keyframes']} keyframes, launches {single_counts}; --mesh 2 {mesh_s:.1f} s ({mesh['mesh']}), "
+        f"ATE {mesh['ate_rmse_m']:.5f} m, keyframe ATE {mesh.get('kf_ate_rmse_m')}, {mesh['keyframes']} keyframes, "
+        f"keyframe translations within {kf_gap:.2e} m of one device's; launches per rank {launches}; ranks' final "
+        f"maps {digests}")
+    e1, e2 = single.get("kf_ate_rmse_m"), mesh.get("kf_ate_rmse_m")
+    if not (mesh["ate_rmse_m"] < 0.05 and mesh["keyframes"] == single["keyframes"] == n_kf
+            and e1 is not None and e2 is not None and abs(e2 - e1) < max(0.02, 0.5 * e1) and kf_gap < 0.05
+            and mesh["mesh"]["size"] == 2):
+        raise AssertionError(f"run_tum --mesh 2: {res['run_tum']}")
+    if len(launches) != 2 or any(c["fast_nms"] != FRAMES for c in launches) or single_counts["fast_nms"] != FRAMES:
+        raise AssertionError(f"run_tum --mesh 2: K1 must launch once per frame on each rank: {launches}")
+    if len(digests) != 2 or digests[0] != digests[1]:
+        raise AssertionError(f"run_tum --mesh 2: the ranks' final maps differ: {digests}")
+
+    kitti_dir, poses = os.path.join(tmp, "kitti"), os.path.join(tmp, "kitti_poses.txt")
+    det_dir = os.path.join(tmp, "kitti_dets")
+    os.makedirs(det_dir, exist_ok=True)
+    for i, det in enumerate(drive_detections(KittiSequence(kitti_dir, poses), KITTI_FRAMES)):
+        save_detection_cache(os.path.join(det_dir, f"{i}.npz"), det)
+    base = [kitti_dir, "--poses", poses, "--detections", det_dir, "--global-ba"]
+    torch.cuda.synchronize()
+    zero_counts()
+    state = {}
+    run_global_ba = SlamSystem.run_global_ba
+
+    def keep_state(self, iters: int = 10):
+        state.update(m=self.map_state, o=self.objects, cfg=self.cfg, kf_frames=list(self.stats["kf_frames"]))
+        return run_global_ba(self, iters)
+
+    SlamSystem.run_global_ba = keep_state  # the one-device run's map before its global BA
+    t0 = time.perf_counter()
+    try:
+        single = run_kitti.main(base + ["--save-dir", os.path.join(tmp, "kitti_single")])
+    finally:
+        SlamSystem.run_global_ba = run_global_ba
+    single_s = time.perf_counter() - t0
+    single_counts = read_counts()
+    mesh, launches, digests, mesh_s = cli_mesh_run(run_kitti.main,
+                                                   base + ["--save-dir", os.path.join(tmp, "kitti_mesh2")])
+    reports = [json.loads(Path(tmp, d, "report.json").read_text()) for d in ("kitti_single", "kitti_mesh2")]
+    res["run_kitti"] = {"single": single, "mesh": mesh, "launches_per_rank": launches,
+                        "single_launches": single_counts, "global_ba": [r["global_ba"] for r in reports],
+                        "map_digests": digests, "single_s": single_s, "mesh_s": mesh_s}
+    log(f"phase 21 run_kitti --detections (perfect 3D detector) --global-ba on phase 9's drive ({KITTI_FRAMES} "
+        f"frames): one device {single_s:.1f} s, ATE {single['ate_rmse_m']:.5f} m, keyframe ATE "
+        f"{single.get('kf_ate_rmse_m')}, {single['keyframes']} keyframes, {single['num_objects']} objects, global BA "
+        f"{reports[0]['global_ba']}; --mesh 2 {mesh_s:.1f} s ({mesh['mesh']}), ATE {mesh['ate_rmse_m']:.5f} m, "
+        f"keyframe ATE {mesh.get('kf_ate_rmse_m')}, {mesh['keyframes']} keyframes, {mesh['num_objects']} objects, "
+        f"global BA {reports[1]['global_ba']}; launches per rank {launches}; ranks' final maps {digests}")
+    e2 = mesh.get("kf_ate_rmse_m")
+    if not (mesh["ate_rmse_m"] < 0.6 and mesh["rpe_trans_rmse"] < 0.25 and mesh["keyframes"] == single["keyframes"]
+            and e2 is not None and e2 < 0.6
+            and reports[0]["global_ba"][-1:] == ["joint"] and reports[1]["global_ba"][-1:] == ["joint-sharded"]):
+        raise AssertionError(f"run_kitti --mesh 2: {res['run_kitti']}")
+    gt_Tcw = np.stack([np.linalg.inv(T) for T in KittiSequence(kitti_dir, poses).poses[:KITTI_FRAMES]])
+    res["run_kitti"]["drive_map"] = drive_joint_world_gap(tmp, state, gt_Tcw)
+    if len(launches) != 2 or any(c["fast_nms"] != KITTI_FRAMES for c in launches):
+        raise AssertionError(f"run_kitti --mesh 2: K1 must launch once per stereo frame on each rank: {launches}")
+    if len(digests) != 2 or digests[0] != digests[1]:
+        raise AssertionError(f"run_kitti --mesh 2: the ranks' final maps differ: {digests}")
+
+    # (c) the dry run.
+    t0 = time.perf_counter()
+    res["dryrun"] = dryrun_multichip(2, timeout=600)
+    log(f"phase 21 dry run over 2 ranks on the card ({time.perf_counter() - t0:.1f} s): {res['dryrun']}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 21 distribution: {res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default=None, help="write a torch.profiler table here")
@@ -2258,6 +2577,7 @@ def main() -> int:
         synth = synthetic_path()
         d2 = detector2d_path(tmp, prof_dir)
         d3 = detector3d_path(tmp, prof_dir)
+        dist21 = distribution_path(tmp)
     st = stereo_kernels(kit.pop("pair"), gen)
     mk = mono_kernels(gen)
     kernels[0]["launches_kitti_path"] = kit["launches"]["fast_nms"]
@@ -2287,6 +2607,9 @@ def main() -> int:
                        ("detector3d_run_kitti", d3["run_kitti"])):
         kernels[0][f"launches_{name}_path"] = path["launches"]["fast_nms"]
         kernels[1][f"launches_{name}_path"] = path["launches"]["hamming_shapes"]
+    for name in ("run_tum", "run_kitti"):
+        kernels[0][f"launches_mesh2_{name}_path"] = [c["fast_nms"] for c in dist21[name]["launches_per_rank"]]
+        kernels[1][f"launches_mesh2_{name}_path"] = [c["hamming"] for c in dist21[name]["launches_per_rank"]]
     kernels[1]["recovery"] = {
         "at_" + shape: times for shape, times in rec["k2"].items()
     } | {

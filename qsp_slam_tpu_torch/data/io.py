@@ -97,10 +97,16 @@ def export_map_txt(path_dir: str, map_state, objects=None) -> None:
                 f.write(f"{i} {labels[i]} " + " ".join(str(x) for x in ells[i]) + "\n")
 
 
+# A 3D detector's measured ellipsoids (camera frame) and their flags, kept
+# when given: the stereo object step seeds its objects from them.
+MEASURED_FIELDS = ("ellipsoid_cam", "fit_ok")
+
+
 def save_detection_cache(path: str, detections: dict) -> None:
     """Per-frame detections as npz; instance masks are bit-packed along
-    the width."""
+    the width.  The reference's reader takes the boxes and masks only."""
     arrs = {k: np.asarray(detections[k]) for k in ("bbox", "label", "prob", "valid")}
+    arrs.update({k: np.asarray(detections[k]) for k in MEASURED_FIELDS if k in detections})
     if "mask" in detections:
         m = np.asarray(detections["mask"]).astype(bool)
         arrs["mask"] = np.packbits(m, axis=-1)
@@ -111,6 +117,7 @@ def save_detection_cache(path: str, detections: dict) -> None:
 def load_detection_cache(path: str) -> dict:
     with np.load(path) as z:
         out = {k: z[k] for k in ("bbox", "label", "prob", "valid")}
+        out.update({k: z[k] for k in MEASURED_FIELDS if k in z.files})
         if "mask" in z.files:
             W = int(z["mask_width"]) if "mask_width" in z.files else None
             m = np.unpackbits(z["mask"], axis=-1)

@@ -74,6 +74,11 @@ def _lm_stage(
         )
         return cost, blocks
 
+    if iters == 0:
+        # Cost-only query (the global BA's final report): one residual pass.
+        r, _, _, row_mask, _ = residuals_and_jacobians(Tcw, points, edges, intr, baseline_fx, with_jacobians=False)
+        return Tcw, points, _total_cost(r, row_mask, edges.inv_sigma2, use_huber, delta2)
+
     def step(acc, prop):
         Tcw_a, points_a, blocks_a, lmbda, cost = acc
         Tcw_p, points_p = prop
@@ -138,3 +143,23 @@ def local_bundle_adjustment(
     )
     inlier = _gate(Tcw, points, edges2, intr, baseline_fx)
     return BAResult(Tcw, points, inlier, cost, torch.sum(inlier))
+
+
+def global_bundle_adjustment(
+    Tcw: torch.Tensor,
+    points: torch.Tensor,
+    edges: ReprojEdges,
+    intr: Intrinsics,
+    baseline_fx: float = 0.0,
+    iters: int = 10,
+    fix_first: bool = True,
+) -> BAResult:
+    """Full-map BA: `iters` Huber trips with camera 0 fixed as the gauge
+    (when `fix_first`), the chi2 gate, and the plain cost of the inliers."""
+    cam_fixed = torch.zeros(Tcw.shape[0], dtype=torch.bool, device=Tcw.device)
+    cam_fixed[0] = fix_first
+    Tcw, points, _ = _lm_stage(Tcw, points, cam_fixed, edges, intr, baseline_fx, iters, use_huber=True)
+    inlier = _gate(Tcw, points, edges, intr, baseline_fx)
+    r_cost = _lm_stage(Tcw, points, cam_fixed, edges._replace(valid=inlier), intr, baseline_fx, 0,
+                       use_huber=False)[2]
+    return BAResult(Tcw, points, inlier, r_cost, torch.sum(inlier))

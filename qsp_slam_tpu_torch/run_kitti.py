@@ -9,13 +9,21 @@ line:
 ATE (the keyframe chain after loop correction).  With `--save-dir` it
 writes `trajectory.txt` (KITTI format) and `report.json` (the summary
 with `loop_events`, `loop_scan`, `capacity_events`, `resets`,
-`relocalizations`, `peak_rss_mb` and, with LiDAR detections,
+`relocalizations`, `global_ba` (each whole-map BA's branch), `peak_rss_mb` and, with LiDAR detections,
 `det_ms_median` and `det_keyframes`).  It runs on CUDA unless given
 `--cpu`.
 
     python -m qsp_slam_tpu_torch.run_kitti SEQ_DIR [--poses poses.txt]
         [--save-dir out] [--max-frames F] [--detections DIR |
-        --lidar-detections [--detector3d PARAMS_NPZ]] [--global-ba] [--cpu]
+        --lidar-detections [--detector3d PARAMS_NPZ]] [--global-ba] [--mesh N] [--cpu]
+
+With `--mesh N` (N > 1) the command runs itself as N ranks
+(`parallel.multihost.spawn_ranks`): every rank tracks every frame with
+its replica of the system, the post-loop and final global BA run
+map-sharded over the ranks from rank 0's state (joint with the objects
+when they have pose measurements), rank 0 alone writes `--save-dir` and
+prints, each rank writes its final map's SHA-256 on stderr (`[rank r/N]
+map ...`), and a failed rank fails the command.
 """
 
 from __future__ import annotations
@@ -28,12 +36,9 @@ import sys
 
 import numpy as np
 
-_LATER = {
-    "mesh": "slice 9 (distribution)",
-}
-
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = argparse.ArgumentParser()
     ap.add_argument("sequence", help=".../sequences/NN directory")
     ap.add_argument("--poses", default=None, help="ground-truth poses file for ATE")
@@ -45,7 +50,10 @@ def main(argv=None):
     ap.add_argument("--detector3d", default=None, metavar="PARAMS_NPZ",
                     help="learned 3D detector's weights (train_detector3d); implies --lidar-detections")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of CUDA")
-    ap.add_argument("--mesh", type=int, default=None, metavar="N", help="sharded global BA (not in this port yet)")
+    ap.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="run the post-loop and final global BA map-sharded over N ranks, started here as N "
+                         "processes (gloo on the CPU or on a shared card, NCCL with a card per rank); only rank "
+                         "0 prints and saves")
     ap.add_argument("--global-ba", action="store_true",
                     help="one full-map optimization pass after the sequence")
     ap.add_argument("--kmax", type=int, default=128)
@@ -53,9 +61,12 @@ def main(argv=None):
     ap.add_argument("--emax", type=int, default=131072)
     ap.add_argument("--num-features", type=int, default=2000)
     args = ap.parse_args(argv)
-    for name, where in _LATER.items():
-        if getattr(args, name) not in (None, False):
-            raise NotImplementedError(f"--{name.replace('_', '-')} arrives with ROADMAP {where}")
+    from .parallel.multihost import cli_mesh
+
+    mesh, ranks_out = cli_mesh("qsp_slam_tpu_torch.run_kitti", argv, args.mesh, args.cpu)
+    if ranks_out is not None:
+        return ranks_out
+    lead = mesh is None or mesh.rank == 0
 
     from .data.io import load_detection_cache, save_trajectory_kitti
     from .data.kitti import KittiSequence
@@ -78,7 +89,7 @@ def main(argv=None):
         # Bound per-frame tracking cost on long drives.
         local_map_budget=8192,
     )
-    sysm = SlamSystem(cfg, kmax=args.kmax, nmax=args.nmax, emax=args.emax,
+    sysm = SlamSystem(cfg, kmax=args.kmax, nmax=args.nmax, emax=args.emax, mesh=mesh,
                       device="cpu" if args.cpu else None)
     d3d = None
     if args.detector3d:
@@ -110,6 +121,12 @@ def main(argv=None):
     out = sysm.summary()
     if args.global_ba:
         out["global_ba"] = True
+    if mesh is not None:
+        from .parallel.mesh import tree_digest
+
+        out["mesh"] = {"size": mesh.size, "backend": mesh.backend}
+        # Every rank's final map: after a global BA the ranks hold rank 0's.
+        print(f"[rank {mesh.rank}/{mesh.size}] map {tree_digest((sysm.map_state, sysm.objects))}", file=sys.stderr)
     est = np.stack(sysm.trajectory)
     if seq.poses is not None:
         gt_Tcw = np.stack([np.linalg.inv(T) for T in seq.poses[:n]])
@@ -124,6 +141,8 @@ def main(argv=None):
             kf_est = sysm.map_state.kf_Tcw[:n_kf].cpu().numpy()[live]
             if len(kf_est) >= 2:
                 out["kf_ate_rmse_m"] = ate_rmse(kf_est, gt_Tcw[np.asarray(kf_frames)[live]])
+    if not lead:
+        return out
     if args.save_dir:
         os.makedirs(args.save_dir, exist_ok=True)
         save_trajectory_kitti(os.path.join(args.save_dir, "trajectory.txt"), est)
@@ -132,7 +151,7 @@ def main(argv=None):
         # loop closures listed here.
         report = dict(out)
         for key, default in (("loop_events", []), ("loop_scan", []), ("capacity_events", []),
-                             ("resets", 0), ("relocalizations", 0)):
+                             ("resets", 0), ("relocalizations", 0), ("global_ba", [])):
             report[key] = sysm.stats.get(key, default)
         det_ms = sysm.stats.get("det_ms", [])
         if det_ms:

@@ -13,7 +13,14 @@ with slice 10.  It runs on CUDA unless given `--cpu`.
 
     python -m qsp_slam_tpu_torch.run_tum SEQUENCE_DIR [--config seq.yaml]
         [--save-dir out] [--skip N] [--max-frames F] [--detections DIR |
-        --detector PARAMS_NPZ] [--global-ba] [--cpu]
+        --detector PARAMS_NPZ] [--global-ba] [--mesh N] [--cpu]
+
+With `--mesh N` (N > 1) the command runs itself as N ranks
+(`parallel.multihost.spawn_ranks`): every rank tracks every frame with
+its replica of the system, the global BA runs map-sharded over the ranks
+from rank 0's state, rank 0 alone writes `--save-dir` and prints, each
+rank writes its final map's SHA-256 on stderr (`[rank r/N] map ...`), and
+a failed rank fails the command.
 """
 
 from __future__ import annotations
@@ -29,11 +36,11 @@ import numpy as np
 
 _LATER = {
     "save_frames": "slice 10 (tools: frame drawer)",
-    "mesh": "slice 9 (distribution)",
 }
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = argparse.ArgumentParser()
     ap.add_argument("sequence")
     ap.add_argument("--config", default=None, help="sequence YAML")
@@ -44,7 +51,10 @@ def main(argv=None):
     ap.add_argument("--detector", default=None, metavar="PARAMS_NPZ",
                     help="learned 2D detector's weights (train_detector2d): detect online at keyframes")
     ap.add_argument("--save-frames", default=None, help="annotated frames (not in this port yet)")
-    ap.add_argument("--mesh", type=int, default=None, help="sharded global BA (not in this port yet)")
+    ap.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="run the post-loop and final global BA map-sharded over N ranks, started here as N "
+                         "processes (gloo on the CPU or on a shared card, NCCL with a card per rank); only rank "
+                         "0 prints and saves")
     ap.add_argument("--global-ba", action="store_true",
                     help="one full-map optimization pass after the sequence")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of CUDA")
@@ -52,6 +62,12 @@ def main(argv=None):
     for name, where in _LATER.items():
         if getattr(args, name) is not None:
             raise NotImplementedError(f"--{name.replace('_', '-')} arrives with ROADMAP {where}")
+    from .parallel.multihost import cli_mesh
+
+    mesh, ranks_out = cli_mesh("qsp_slam_tpu_torch.run_tum", argv, args.mesh, args.cpu)
+    if ranks_out is not None:
+        return ranks_out
+    lead = mesh is None or mesh.rank == 0
 
     from .data.io import load_detection_cache, save_map, save_trajectory_tum
     from .data.tum import TumSequence
@@ -71,7 +87,7 @@ def main(argv=None):
         from .perception.detector2d import load_detector2d
 
         detector = load_detector2d(args.detector, device="cpu" if args.cpu else None)
-    sysm = SlamSystem(cfg, detector=detector, device="cpu" if args.cpu else None)
+    sysm = SlamSystem(cfg, detector=detector, mesh=mesh, device="cpu" if args.cpu else None)
     timestamps, gt = [], []
     indices = list(range(0, len(seq), args.skip))
     if args.max_frames:
@@ -95,6 +111,12 @@ def main(argv=None):
     out = sysm.summary()
     if args.global_ba:
         out["global_ba"] = True
+    if mesh is not None:
+        from .parallel.mesh import tree_digest
+
+        out["mesh"] = {"size": mesh.size, "backend": mesh.backend}
+        # Every rank's final map: after a global BA the ranks hold rank 0's.
+        print(f"[rank {mesh.rank}/{mesh.size}] map {tree_digest((sysm.map_state, sysm.objects))}", file=sys.stderr)
     est = np.stack(sysm.trajectory)
     if gt and all(g is not None for g in gt):
         gt_arr = np.stack(gt)
@@ -110,6 +132,8 @@ def main(argv=None):
             if len(kf_est) >= 2:
                 out["kf_ate_rmse_m"] = ate_rmse(kf_est, gt_arr[np.asarray(kf_frames)[live]])
     out["decoded_by"] = dict(Counter(seq.decoded_by.values()))
+    if not lead:
+        return out
     if args.save_dir:
         os.makedirs(args.save_dir, exist_ok=True)
         save_trajectory_tum(os.path.join(args.save_dir, "CameraTrajectory.txt"), timestamps, est)

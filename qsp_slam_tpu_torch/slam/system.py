@@ -29,12 +29,15 @@ the joint pose + code LM over its flip hypotheses.  With a learned 2D
 `detector`, an RGB-D or stereo frame given no detections keeps its gray
 image (the left one of a pair) on the device, and a keyframe detects in
 it (`perception/detector2d.detect_objects`) before its object step: the
-reference's detect-online mode.  The sharded BA of a later port slice
-raises `NotImplementedError` naming the slice (see ROADMAP.md queue A).
+reference's detect-online mode.  With a `mesh` of several ranks, each
+rank runs its replica of the system on the same frames and the whole-map
+BA runs map-sharded over them, every decision and shape of its
+collectives taken from rank 0's state (`_end_frame`, `_adopt_rank0`).
 """
 
 from __future__ import annotations
 
+import functools
 import sys
 import time
 from dataclasses import dataclass, field
@@ -55,7 +58,9 @@ from ..perception.manhattan import empty_plane_set, extract_manhattan_planes, up
 from ..perception.prior_infer import default_priors, generate_init_guess
 from ..perception.relations import extract_relations, select_support_plane, support_planes_for_objects
 from ..perception.symmetry import estimate_symmetry
+from ..parallel.mesh import Mesh, broadcast, broadcast_object
 from . import map as mapmod
+from .distributed_mapping import global_ba_sharded, global_joint_ba_sharded
 from .joint_mapping import joint_ba_step
 from .local_mapping import (
     cull_keyframes,
@@ -102,10 +107,6 @@ from .tracking import (
     process_frame_stereo,
 )
 
-_LATER = {
-    "mesh": "slice 9 (distribution)",
-}
-
 
 def _to_device(x, device: torch.device) -> torch.Tensor:
     """Camera input (array or tensor) -> tensor on `device`; uint16 depth
@@ -117,6 +118,28 @@ def _to_device(x, device: torch.device) -> torch.Tensor:
         t = torch.from_numpy(x.view(np.int16)).to(device)
         return t.to(torch.int32) & 0xFFFF
     return torch.from_numpy(x).to(device)
+
+
+# What a rank is given rather than what it tracked: kept when a rank takes
+# rank 0's state (`SlamSystem._adopt_rank0`).
+_GIVEN = frozenset({
+    "cfg", "ba_window", "omax", "enable_objects", "enable_loop_closing", "enable_relocalization",
+    "localization_only", "enable_structures", "enable_symmetry", "aspect_priors", "detector", "shape_prior",
+    "mesh", "device", "_pending_detections", "_pending_depth", "_pending_gray",
+})
+
+
+def _frame(track):
+    """A `track_*` method that ends with `_end_frame`, which every rank of
+    a mesh reaches once per frame whatever its own tracking decided."""
+
+    @functools.wraps(track)
+    def run(self, *args, **kwargs):
+        track(self, *args, **kwargs)
+        self._end_frame()
+        return self.Tcw
+
+    return run
 
 
 def _det_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -156,7 +179,14 @@ class SlamSystem:
     # DeepSDF prior (params, DeepSDFConfig[, ShapeOptConfig]): per-object
     # shape reconstruction at keyframes of the RGB-D and stereo object step.
     shape_prior: Optional[tuple] = None
-    mesh: Optional[object] = None
+    # Rank mesh of the sharded global BA (`parallel.mesh.make_mesh`): with
+    # more than one rank the post-loop and `run_global_ba` whole-map BA run
+    # map-sharded over it (`slam/distributed_mapping.py`); every rank runs
+    # its replica of the system and makes the same calls on the same
+    # frames.  A global BA starts with every rank taking rank 0's state, so
+    # whether it runs, its branch and its shapes are rank 0's.  None or a
+    # size-1 mesh use the single-device programs.
+    mesh: Optional[Mesh] = None
     device: Optional[str] = None
     map_state: MapState = field(init=False)
     loop_state: LoopState = field(init=False)
@@ -175,7 +205,10 @@ class SlamSystem:
                                                  "track_ms": [], "ba_ms": [], "obj_ms": []})
 
     def __post_init__(self):
-        self._refuse_later()
+        if self.mesh is not None and not isinstance(self.mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, not {type(self.mesh).__name__}")
+        if self.device is None and self.mesh is not None:
+            self.device = self.mesh.device
         self.device = resolve_device(self.device)
         if self.detector is not None:
             params, dcfg = self.detector
@@ -184,11 +217,6 @@ class SlamSystem:
         self._pending_detections = self._pending_depth = self._pending_gray = None
         self._loop_gate = ConsistencyGate()
         self._clear_state()
-
-    def _refuse_later(self):
-        for name, where in _LATER.items():
-            if getattr(self, name):
-                raise NotImplementedError(f"{name} arrives with ROADMAP {where}")
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -231,9 +259,11 @@ class SlamSystem:
         self.inliers_at_last_kf = 0
         self._lost_streak = 0
         self._kf_fresh = False
+        self._loop_kf = -1  # keyframe of a loop whose global BA is due
         self._loop_gate.reset()
 
     # ------------------------------------------------------------------
+    @_frame
     def track_rgbd(self, gray, depth, detections=None) -> np.ndarray:
         """Process one RGB-D frame (gray (H, W) uint8/f32, depth (H, W)
         uint16 PNG units or f32 meters); returns the estimated T_cw.
@@ -263,6 +293,7 @@ class SlamSystem:
         )
         return self._post_track(frame, res, Tcw_pred, t0)
 
+    @_frame
     def track_stereo(self, gray_left, gray_right, detections=None) -> np.ndarray:
         """Process one rectified stereo pair (gray (H, W) uint8/f32 each):
         features of both images, scanline matching, depth per keypoint,
@@ -287,6 +318,7 @@ class SlamSystem:
         )
         return self._post_track(frame, res, Tcw_pred, t0)
 
+    @_frame
     def track_mono(self, gray, detections=None) -> np.ndarray:
         """Process one monocular frame (gray (H, W) uint8/f32); returns the
         estimated T_cw.  Until the two-view bootstrap succeeds the pose
@@ -795,30 +827,80 @@ class SlamSystem:
         self._loop_gate.reset()
         self.map_state, self.objects = correct_loop(self.map_state, self.objects, kf_id, det,
                                                     fix_scale=fix_scale)
+        self._loop_kf = kf_id
+        if not self._multi_device():  # on a mesh, at the frame's end
+            self._global_ba_after_loop()
+
+    def _global_ba_after_loop(self) -> None:
+        """The corrected map's global BA; the loop keyframe's pose is then
+        the current one."""
+        kf_id, self._loop_kf = self._loop_kf, -1
         self._dispatch_global_ba()
         self.Tcw = self.map_state.kf_Tcw[kf_id].cpu().numpy()
         self.velocity = np.eye(4, dtype=np.float32)
         self.loops_closed += 1
 
+    def _multi_device(self) -> bool:
+        return self.mesh is not None and self.mesh.size > 1
+
+    def _end_frame(self) -> None:
+        """On a mesh of several ranks, the post-loop global BA of this frame
+        (loop closing is a keyframe's last step, so nothing reads the map
+        between it and here): rank 0 says whether it closed a loop, and if
+        it did every rank takes rank 0's state and runs the sharded BA.  A
+        rank's own loop is dropped: the replicas can part (the card's
+        scatter-adds are not bitwise repeatable), and collectives entered
+        on each rank's own decision would not match."""
+        if not self._multi_device():
+            return
+        flag = torch.tensor([self._loop_kf], dtype=torch.int64, device=self.device)
+        if int(broadcast(self.mesh, (flag,))[0]) < 0:
+            self._loop_kf = -1
+            return
+        self._adopt_rank0()
+        self._global_ba_after_loop()
+        self.trajectory[-1] = self.Tcw.copy()
+
+    def _adopt_rank0(self) -> None:
+        """Every rank takes rank 0's tracked state (everything but what it
+        was given, `_GIVEN`): the map, snapshots, objects, planes, pose,
+        counters, capacities, trajectory and stats."""
+        state = {k: v for k, v in vars(self).items() if k not in _GIVEN}
+        for k, v in broadcast_object(self.mesh, state, self.device).items():
+            setattr(self, k, v)
+
     def _dispatch_global_ba(self, iters: int = 10) -> None:
-        """Whole-map BA on this device: joint (cameras, points and objects,
-        `joint_ba_step` over every keyframe slot) when the stereo sensor's
-        objects hold at least two camera-object pose measurements,
-        point-only (`iters` trips) otherwise.  The sharded variants raise
-        through `_LATER` (slice 9)."""
-        self._refuse_later()
-        if (self._sensor == "stereo" and self.enable_objects
-                and int(torch.sum(self.objects.pm_kf >= 0)) >= 2):
+        """Whole-map BA: joint (cameras, points and objects) when the stereo
+        sensor's objects hold at least two camera-object pose measurements,
+        point-only otherwise; map-sharded over the mesh when it has more
+        than one rank (`iters` Huber trips), else on this device
+        (`joint_ba_step` over every keyframe slot, or `global_ba_step`).
+        `stats["global_ba"]` records each call's branch."""
+        joint = (self._sensor == "stereo" and self.enable_objects
+                 and int(torch.sum(self.objects.pm_kf >= 0)) >= 2)
+        sharded = self._multi_device()
+        if joint and sharded:
+            self.map_state, self.objects = global_joint_ba_sharded(self.map_state, self.objects, self.cfg,
+                                                                   self.mesh, iters=iters)
+        elif joint:
             self.map_state, self.objects = joint_ba_step(self.map_state, self.objects, self.cfg, window=self.kmax)
+        elif sharded:
+            self.map_state = global_ba_sharded(self.map_state, self.cfg, self.mesh, iters=iters)
         else:
             self.map_state = global_ba_step(self.map_state, self.cfg, iters=iters)
+        self.stats.setdefault("global_ba", []).append(("joint" if joint else "point")
+                                                      + ("-sharded" if sharded else ""))
         self._sync()
 
     # ------------------------------------------------------------------
     def run_global_ba(self, iters: int = 10) -> None:
         """Full-map optimization outside loop closure (all keyframes,
         keyframe 0 fixed, and all points; the objects too when the stereo
-        sensor has their pose measurements), e.g. before saving a map."""
+        sensor has their pose measurements), e.g. before saving a map;
+        map-sharded when the system's mesh has more than one rank, which
+        every rank calls and which starts from rank 0's state."""
+        if self._multi_device():
+            self._adopt_rank0()
         if int(self.map_state.num_kfs) < 2:
             return
         self._dispatch_global_ba(iters)

@@ -74,7 +74,8 @@ class TestPackage:
         assert got["n"] >= 25, got
         assert got["bad"] == [], got["bad"]
         for m in ("perception.detector2d", "perception.detector3d", "train_detector2d", "train_detector3d",
-                  "data.synthetic"):
+                  "data.synthetic", "parallel.mesh", "parallel.multihost", "parallel.sharded_ba",
+                  "parallel.map_sharded_ba", "parallel.replay", "parallel.dryrun", "slam.distributed_mapping"):
             assert f"qsp_slam_tpu_torch.{m}" in got["mods"], m
 
     def test_no_source_imports_reference(self):

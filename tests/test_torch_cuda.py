@@ -18,8 +18,10 @@ RGB-D and stereo object runs: the same keyframes, object slots, labels
 dense pose solve within 1e-4 of the CPU's, relative; the DeepSDF decoder
 at the reference's width within 1e-5 of the CPU, two joint pose + code LM
 trips at that width within 1e-3 (deeper runs part along the code's weak
-directions on any two machines), and the package's marching-cubes build
-on a sphere.
+directions on any two machines), the package's marching-cubes build
+on a sphere, and the map-sharded BA as two gloo ranks on the card against
+one NCCL rank (costs 1e-4 relative, poses 1e-4, points 1e-3, both ranks
+bitwise equal).
 """
 
 import numpy as np
@@ -445,3 +447,44 @@ def test_marching_cubes_build(gen):
     mesh = marching_cubes(np.sqrt(x * x + y * y + z * z) - 0.6)
     r = np.linalg.norm(mesh.vertices * (2.0 / 39) - 1.0, axis=1)
     assert len(mesh.faces) > 1000 and np.abs(r - 0.6).max() < 1.0 / 39
+
+
+def test_sharded_ba_two_gloo_ranks_on_the_card_match_one_nccl_rank(gen, tmp_path):
+    """The map-sharded point and joint BA on the card as two ranks sharing
+    it (gloo, the sums staged through the host) against one rank (NCCL):
+    costs within 1e-4 relative, poses 1e-4, points 1e-3, both ranks the
+    same bits, the backends by `mesh.choose_backend`'s rule."""
+    from qsp_slam_tpu_torch.data.synthetic import make_ba_problem
+    from qsp_slam_tpu_torch.parallel.mesh import choose_backend
+    from qsp_slam_tpu_torch.parallel.multihost import spawn_ranks
+    from qsp_slam_tpu_torch.parallel.replay import problem_arrays, save_problems
+
+    prob = make_ba_problem(num_cams=12, num_points=2000, obs_per_point=5, stereo=True, seed=4)
+    M = 4
+    T_oc = np.tile(np.eye(4, dtype=np.float32), (2, M, 1, 1))
+    kf = np.full((2, M), -1, np.int32)
+    for j, k in enumerate([2, 6, 9]):
+        T_oc[0, j] = np.linalg.inv(prob.Tcw_gt[k])
+        kf[0, j] = k
+    objects = {"Tow": np.tile(np.eye(4, dtype=np.float32), (2, 1, 1)), "obj_fixed": np.array([False, True]),
+               "obj_cam_idx": np.clip(kf, 0, None).reshape(-1),
+               "obj_obj_idx": np.repeat(np.arange(2, dtype=np.int32), M),
+               "obj_T_oc": T_oc.reshape(-1, 4, 4), "obj_valid": (kf >= 0).reshape(-1)}
+    objects["Tow"][0, :3, 3] = [0.1, -0.05, 0.08]
+    save_problems(tmp_path / "p.npz", [{"name": "map", "kind": "map_ba", "prefix": "p", "iters": 6},
+                                       {"name": "joint", "kind": "map_joint_ba", "prefix": "p", "iters": 6}],
+                  {"p": {**problem_arrays(prob, 0.08 * prob.intr.fx), **objects}})
+    outs = {}
+    for world in (1, 2):
+        lines = [r.json() for r in spawn_ranks(world, [str(tmp_path / "p.npz"), str(tmp_path / f"w{world}")],
+                                               target="qsp_slam_tpu_torch.parallel.replay:main", timeout=300)]
+        assert all(ln["backend"] == choose_backend(world, "cuda") and ln["device"].startswith("cuda")
+                   for ln in lines)
+        outs[world] = [dict(np.load(tmp_path / f"w{world}" / f"rank{r}.npz")) for r in range(world)]
+    for k, v in outs[2][0].items():
+        np.testing.assert_array_equal(outs[2][1][k], v, err_msg=k)
+        if k.endswith("/cost"):
+            np.testing.assert_allclose(v, outs[1][0][k], rtol=1e-4, err_msg=k)
+        else:
+            np.testing.assert_allclose(v, outs[1][0][k], rtol=0, atol=1e-3 if k.endswith("/points") else 1e-4,
+                                       err_msg=k)

@@ -268,7 +268,7 @@ def test_detector_field_builds_a_detecting_system():
                              device="cpu")
     sysm = SlamSystem(TrackingConfig(orb=OrbConfig(num_features=300)), detector=(params, TCFG), device="cpu",
                       enable_objects=False, **SYS)
-    assert "detector" not in system_mod._LATER and sysm.detector[0]["c1_w"].device.type == "cpu"
+    assert not hasattr(system_mod, "_LATER") and sysm.detector[0]["c1_w"].device.type == "cpu"
     gray = np.zeros((480, 640), np.uint8)
     sysm.track_rgbd(gray, np.ones((480, 640), np.float32), None)
     assert sysm._pending_gray is not None and tuple(sysm._pending_gray.shape) == (480, 640)

@@ -273,9 +273,16 @@ class TestRunTum:
     def test_later_slices_refuse(self, flag):
         """Later slices refuse; `--detections` and `--detector` are taken and
         the run goes on to read the sequence (`tests/test_torch_structures.py`
-        and `tests/test_torch_detector2d.py` run them)."""
+        and `tests/test_torch_detector2d.py` run them); `--mesh 2` is taken
+        and runs the command as two ranks, each of which fails to read the
+        sequence, which fails the command
+        (`tests/test_torch_distributed_system.py` runs it)."""
         from qsp_slam_tpu_torch import run_tum
 
+        if flag[0] == "--mesh":
+            with pytest.raises(RuntimeError, match="rgb.txt"):
+                run_tum.main(["unused", *flag, "--cpu"])
+            return
         taken = flag[0] in ("--detections", "--detector")
         with pytest.raises(FileNotFoundError if taken else NotImplementedError, match="rgb.txt" if taken else "slice"):
             run_tum.main(["unused", *flag, "--cpu"])

@@ -114,15 +114,16 @@ def test_run_kitti_cli(drive, capsys):
 @pytest.mark.parametrize("flag", [["--detections", "d"], ["--lidar-detections"], ["--detector3d", "p.npz"],
                                   ["--mesh", "2"]])
 def test_run_kitti_later_slices_refuse(flag):
-    """The sharded BA (slice 9) refuses; the object flags and the learned 3D
-    detector are taken and the run goes on to read the sequence
-    (`tests/test_torch_joint.py` and `test_run_kitti_detector3d` run them
-    end to end)."""
+    """Every flag is taken now: the object flags and the learned 3D detector
+    go on to read the sequence (`tests/test_torch_joint.py` and
+    `test_run_kitti_detector3d` run them end to end); `--mesh 2` runs the
+    command as two ranks, each of which fails to read it, which fails the
+    command."""
     if flag[0] in ("--detections", "--lidar-detections", "--detector3d"):
         with pytest.raises(FileNotFoundError, match="calib.txt"):
             run_kitti.main(["unused", *flag, "--cpu"])
         return
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(RuntimeError, match="calib.txt"):
         run_kitti.main(["unused", *flag, "--cpu"])
 
 

@@ -328,7 +328,10 @@ class TestLocalMapping:
 class TestSystemScope:
     @pytest.mark.parametrize("kw", [dict(mesh=object())])
     def test_later_slices_raise(self, kw):
-        with pytest.raises(NotImplementedError, match="slice"):
+        """The mesh is a system field now (slice 9): anything but a
+        `parallel.mesh.Mesh` raises (`tests/test_torch_distributed_system.py`
+        drives real meshes)."""
+        with pytest.raises(TypeError, match="mesh"):
             SlamSystem(ttr.TrackingConfig(), kmax=4, nmax=64, emax=256, device="cpu", **kw)
 
     def test_detector_is_taken(self):
