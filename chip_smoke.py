@@ -185,7 +185,31 @@ Phases (any failure exits non-zero and prints no result line):
      (the reference's sharded joint BA parts from its single-device one on
      this drive, so the two commands' keyframes are compared only there);
      then the dry run over two ranks on the card.
-Paths 4, 7, 8, 9, 10, 11, 13, 14, 16, 18, 19, 20 and 21 each zero the launch counters just
+ 22. the tools, each step a span of the port's `Tracer` that ends in a
+     synchronise (its report printed): (a) `run_tum --detections
+     --save-dir --save-frames --frame-every 10` on phase 13's sequence and
+     caches: phase 13's gates, K1 once per frame, `map_points.ply` with as
+     many vertices as `map.npz` has valid points, `trajectory.ply` the 60
+     camera centres of `CameraTrajectory.txt` within 1e-5 m,
+     `object_wireframes.ply` 72 vertices per valid object, 6 annotated
+     PNGs that `native_loader.load_png` decodes at 640x480 to the frame
+     drawn (its luminance), the tracked frames with >= 100 pixels of
+     tracked-keypoint marks; `track_ms_median` beside phase 13's; (b)
+     `visualize_map` on that map at 640x480: two renders, its JSON's
+     counts the map's, ms per render by CUDA events; (c) run_synthetic's
+     object scene (30 frames) with a toy-width decoder in the reference
+     checkpoint's layout (16/96/8, latent in at 4) trained on the card,
+     its map saved: `extract_objects --resolution 64 --checkpoint` (that
+     decoder) writes exactly the meshes `extract_mesh_from_code` gives
+     non-empty for the `shape_ok` objects, with their vertex and face
+     counts, and `visualize_map` renders the shapes; (d) `DenseBuilder`
+     over the 60 frames and the tracked poses on the card and on the
+     CPU: >= 99.9% of the voxel keys shared, ms per frame, points, peak
+     memory; (e) `label_tool det add / list / remove` on a copy of the
+     caches and `gt from-map` (as many objects as the map's valid ones);
+     (f) one tracked frame under `utils.tracing.device_trace`, whose trace
+     must name K1's kernel.
+Paths 4, 7, 8, 9, 10, 11, 13, 14, 16, 18, 19, 20, 21 and 22 each zero the launch counters just
 before and read them just after (phase 21's ranks count in their own processes and
 report at their end).  With `--profile DIR`: torch.profiler tables in DIR
 of main-path frames 12-19, of KITTI-drive frames 12-19 (phase 9's
@@ -200,8 +224,11 @@ card line again, and as the last line `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -212,6 +239,7 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+from qsp_slam_tpu_torch import extract_objects, label_tool, visualize_map  # noqa: E402
 from qsp_slam_tpu_torch import run_kitti, run_mono, run_synthetic, run_tum  # noqa: E402
 from qsp_slam_tpu_torch.core import lie, quadric  # noqa: E402
 from qsp_slam_tpu_torch.data import make_kitti, make_tum, native_loader  # noqa: E402
@@ -222,6 +250,7 @@ from qsp_slam_tpu_torch.data.io import (  # noqa: E402
     load_map,
     load_trajectory_tum,
     save_detection_cache,
+    save_map,
 )
 from qsp_slam_tpu_torch.data.synthetic import make_ba_problem  # noqa: E402
 from qsp_slam_tpu_torch.data.render import (  # noqa: E402
@@ -240,6 +269,7 @@ from qsp_slam_tpu_torch.frontend.orb import OrbConfig  # noqa: E402
 from qsp_slam_tpu_torch.frontend.pyramid import PyramidConfig, build_pyramid  # noqa: E402
 from qsp_slam_tpu_torch.models.deepsdf import (  # noqa: E402
     DeepSDFConfig,
+    DeepSDFDecoder,
     decode_sdf,
     ellipsoid_sdf,
     macs_per_point,
@@ -260,6 +290,7 @@ from qsp_slam_tpu_torch.parallel.multihost import spawn_ranks  # noqa: E402
 from qsp_slam_tpu_torch.parallel.replay import problem_arrays, save_problems  # noqa: E402
 from qsp_slam_tpu_torch.perception import detector2d as det2d  # noqa: E402
 from qsp_slam_tpu_torch.perception import detector3d as det3d  # noqa: E402
+from qsp_slam_tpu_torch.perception.dense_builder import DenseBuilder  # noqa: E402
 from qsp_slam_tpu_torch.slam import system as system_mod  # noqa: E402
 from qsp_slam_tpu_torch.slam.system import SlamSystem  # noqa: E402
 from qsp_slam_tpu_torch.slam.tracking import TrackingConfig, process_frame  # noqa: E402
@@ -269,6 +300,8 @@ from qsp_slam_tpu_torch.slam.shape_mapping import (  # noqa: E402
     chunk_size,
     hypothesis_bytes,
 )
+from qsp_slam_tpu_torch.utils.tracing import Tracer, device_trace  # noqa: E402
+from qsp_slam_tpu_torch.viz import frame_draw, object_render  # noqa: E402
 from qsp_slam_tpu_torch.viz.object_render import render_objects_png  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -1031,6 +1064,26 @@ def scene_truth(step: float, pitch: float):
     return quadric.transform_ellipsoid(scene.ellipsoids, first).numpy(), scene.labels.numpy()
 
 
+def rgbd_objects_gates(sysm, out: dict, what: str) -> dict:
+    """Phase 13's object gates on a `run_tum --detections` run of phase 11's
+    sequence (ATE, objects of the scene's labels, one within 0.4 m with its
+    label, recall, Manhattan planes with two votes)."""
+    valid = sysm.objects.valid.cpu().numpy()
+    est, labels = sysm.objects.ellipsoid.cpu().numpy()[valid], sysm.objects.label.cpu().numpy()[valid]
+    gt, gt_labels = scene_truth(0.025, 0.4)
+    ev = evaluate_objects(est, labels, gt, gt_labels)
+    near = [np.linalg.norm(gt[:, :3] - e[:3], axis=1) for e in est]
+    matched = sum(d.min() < 0.4 and gt_labels[d.argmin()] == lab for d, lab in zip(near, labels))
+    votes = sysm.plane_set.votes.cpu().numpy()
+    planes2 = int((sysm.plane_set.valid.cpu().numpy() & (votes >= 2)).sum())
+    res = {"labels": sorted(int(x) for x in labels), "matched": int(matched), "planes_2_votes": planes2,
+           "votes": votes.tolist(), "ev": ev}
+    if not (out["ate_rmse_m"] < 0.05 and out["num_objects"] >= 2 and set(res["labels"]) <= {0, 1, 2}
+            and matched >= 1 and planes2 >= 2 and ev.recall >= TUM_OBJ_RECALL):
+        raise AssertionError(f"{what} failed: {res}, {out}")
+    return res
+
+
 def rgbd_objects_path(tmp: str) -> dict:
     """Phase 13: `run_tum --detections` on phase 11's sequence at 4000
     features, the objects held to the scene's ground truth."""
@@ -1047,31 +1100,22 @@ def rgbd_objects_path(tmp: str) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     counts = read_counts()
     sysm = ft.system
-    valid = sysm.objects.valid.cpu().numpy()
-    est, labels = sysm.objects.ellipsoid.cpu().numpy()[valid], sysm.objects.label.cpu().numpy()[valid]
-    gt, gt_labels = scene_truth(0.025, 0.4)
-    ev = evaluate_objects(est, labels, gt, gt_labels)
-    near = [np.linalg.norm(gt[:, :3] - e[:3], axis=1) for e in est]
-    matched = sum(d.min() < 0.4 and gt_labels[d.argmin()] == lab for d, lab in zip(near, labels))
-    votes = sysm.plane_set.votes.cpu().numpy()
-    planes2 = int((sysm.plane_set.valid.cpu().numpy() & (votes >= 2)).sum())
+    g = rgbd_objects_gates(sysm, out, "RGB-D object path")
+    ev = g.pop("ev")
     tracked = [ms for ms, init in zip(ft.ms, ft.was_init) if init]
     res = {"ms_per_frame_end_to_end": wall_ms / MONO_FRAMES, "ms_per_frame_median": float(np.median(tracked)),
            "kf_frames": sysm.stats["kf_frames"], "ba_ms": sysm.stats["ba_ms"], "obj_ms": sysm.stats["obj_ms"],
-           "labels": sorted(int(x) for x in labels), "matched": int(matched), "planes_2_votes": planes2,
-           "precision": ev.precision, "recall": ev.recall, "mean_iou": ev.mean_iou, "launches": counts, "out": out}
+           **g, "precision": ev.precision, "recall": ev.recall, "mean_iou": ev.mean_iou, "launches": counts,
+           "out": out}
     log(f"phase 13 RGB-D objects, run_tum --detections: {MONO_FRAMES} frames at 640x480, {TUM_OBJ_F} features: "
         f"{res['ms_per_frame_end_to_end']:.3f} ms/frame end to end, median {res['ms_per_frame_median']:.3f} ms per "
         f"tracked frame (host clock around track_rgbd), keyframes at {sysm.stats['kf_frames']}, ATE "
         f"{out['ate_rmse_m']:.5f} m, RPE {out['rpe_trans_rmse']:.5f} m, objects {out['num_objects']} labels "
-        f"{res['labels']}, {matched} within 0.4 m of the truth with its label, Manhattan planes with >= 2 votes "
-        f"{planes2} (votes {votes.tolist()}), precision {ev.precision:.3f} recall {ev.recall:.3f} mean IoU "
-        f"{ev.mean_iou:.3f} centre error {ev.mean_center_err:.4f} m; BA ms per keyframe "
+        f"{res['labels']}, {res['matched']} within 0.4 m of the truth with its label, Manhattan planes with >= 2 "
+        f"votes {res['planes_2_votes']} (votes {res['votes']}), precision {ev.precision:.3f} recall "
+        f"{ev.recall:.3f} mean IoU {ev.mean_iou:.3f} centre error {ev.mean_center_err:.4f} m; BA ms per keyframe "
         f"{[round(x, 1) for x in sysm.stats['ba_ms']]}, object ms per keyframe "
         f"{[round(x, 1) for x in sysm.stats['obj_ms']]}; launches {counts}")
-    if not (out["ate_rmse_m"] < 0.05 and out["num_objects"] >= 2 and set(res["labels"]) <= {0, 1, 2}
-            and matched >= 1 and planes2 >= 2 and ev.recall >= TUM_OBJ_RECALL):
-        raise AssertionError(f"RGB-D object path failed: {res}")
     if counts["fast_nms"] != MONO_FRAMES or counts["hamming"] < 1:
         raise AssertionError(f"RGB-D object path launches: {counts}")
     return res
@@ -2410,6 +2454,234 @@ def distribution_path(tmp: str) -> dict:
     return res
 
 
+def ply_counts(path: str) -> dict:
+    """The element counts of a PLY header: {"vertex": V, "face": T}."""
+    counts = {}
+    with open(path) as f:
+        for line in f:
+            if line.startswith("element "):
+                _, name, n = line.split()
+                counts[name] = int(n)
+            if line.strip() == "end_header":
+                return counts
+    raise AssertionError(f"{path}: no end_header")
+
+
+def ply_vertices(path: str) -> np.ndarray:
+    n = ply_counts(path)["vertex"]
+    with open(path) as f:
+        lines = f.read().splitlines()
+    start = lines.index("end_header") + 1
+    return np.array([[float(x) for x in ln.split()[:3]] for ln in lines[start:start + n]])
+
+
+def luminance(rgb: np.ndarray) -> np.ndarray:
+    """PIL's integer RGB -> L, which the native decoder applies."""
+    r, g, b = (rgb[..., i].astype(np.uint32) for i in range(3))
+    return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(np.float32)
+
+
+class Recorded:
+    """Records the arguments of every call of a module's function (installed
+    over its name) and passes the call on."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, []
+        self._saved = getattr(module, name)
+
+    def __enter__(self):
+        saved = self._saved
+
+        def recorded(*a, **k):
+            self.calls.append((a, k))
+            return saved(*a, **k)
+
+        setattr(self.module, self.name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self._saved)
+
+
+def shaped_synthetic_map(tmp: str) -> tuple:
+    """run_synthetic's object scene (30 frames, 1000 features, three objects
+    seen 25 degrees down with the renderer's detections and masks) with a
+    toy-width decoder in the reference checkpoint's layout (8 layers, the
+    latent in at layer 4; run_synthetic's own toy decoder has 6 layers,
+    which `--checkpoint` cannot load in either package), trained on the
+    card: -> (map path, checkpoint path, params, decoder config, system)."""
+    dec_cfg = DeepSDFConfig(code_dim=16, hidden=96, num_layers=8, latent_in=(4,))
+    params, _, _ = train_toy_decoder(0, dec_cfg, num_shapes=8, steps=300, batch=512, device="cuda")
+    cfg = TrackingConfig(orb=OrbConfig(num_features=1000))
+    scene = make_scene(num_objects=3, seed=2, device="cuda")
+    pitch = lie.exp_se3(torch.tensor([0, 0, 0, 0.44, 0, 0], dtype=torch.float32)).numpy()
+    Tcw_gt = np.einsum("fij,jk->fik", orbit_trajectory(30), pitch).astype(np.float32)
+    sysm = SlamSystem(cfg, shape_prior=(params, dec_cfg), device="cuda")
+    for T in Tcw_gt:
+        gray, depth, inst = render_scene(scene, T, cfg.intr)
+        det = gt_detections(scene, T, cfg.intr, instance=inst)
+        sysm.track_rgbd(gray, depth, {k: v.cpu().numpy() for k, v in det.items()})
+    map_path, ckpt = os.path.join(tmp, "shaped_map.npz"), os.path.join(tmp, "decoder_ref_layout.pth")
+    save_map(map_path, sysm.map_state, sysm.objects)
+    torch.save({"model_state_dict": DeepSDFDecoder(dec_cfg, params).state_dict()}, ckpt)
+    return map_path, ckpt, params, dec_cfg, sysm
+
+
+def tools_path(tmp: str, tum13: dict) -> dict:
+    """Phase 22: the tools at full width on phase 13's sequence (see the
+    module docstring), each step a span of the port's `Tracer` that ends in
+    a synchronise."""
+    tr = Tracer()
+    seq_dir, conf = os.path.join(tmp, "mono"), os.path.join(tmp, "tum4000.yaml")
+    save_dir, frames_dir = os.path.join(tmp, "tools_out"), os.path.join(tmp, "tools_frames")
+    res = {}
+
+    # (a) run_tum --detections --save-dir --save-frames ------------------
+    torch.cuda.synchronize()
+    zero_counts()
+    with tr.span("a run_tum --save-dir --save-frames"), FrameTimes("track_rgbd") as ft, \
+            Recorded(frame_draw, "save_annotated") as saved:
+        out = run_tum.main([seq_dir, "--detections", os.path.join(seq_dir, "detections"), "--config", conf,
+                            "--save-dir", save_dir, "--save-frames", frames_dir, "--frame-every", "10"])
+        torch.cuda.synchronize()
+    counts = read_counts()
+    sysm = ft.system
+    g = rgbd_objects_gates(sysm, out, "phase 22 run_tum --save-frames")
+    m = load_map(os.path.join(save_dir, "map.npz"))
+    n_pts, n_obj = int(m["pt_valid"].sum()), int(m["obj_valid"].sum())
+    ply = {n: ply_counts(os.path.join(save_dir, f"{n}.ply"))
+           for n in ("map_points", "trajectory", "object_wireframes")}
+    _, Tcw = load_trajectory_tum(os.path.join(save_dir, "CameraTrajectory.txt"))
+    centres = np.stack([np.linalg.inv(T)[:3, 3] for T in Tcw])
+    traj_gap = float(np.abs(ply_vertices(os.path.join(save_dir, "trajectory.ply")) - centres).max())
+    pngs = sorted(os.listdir(frames_dir))
+    marks = []
+    for (path, gray), kw in ((c[0][:2], c[1]) for c in saved.calls):
+        decoded = native_loader.load_png(path)
+        drawn = frame_draw.annotate_frame(gray, **kw)
+        if decoded is None or decoded.shape != (480, 640) or not np.array_equal(decoded, luminance(drawn)):
+            raise AssertionError(f"phase 22: {path} does not decode to the frame drawn")
+        marks.append(int((drawn == (0, 230, 80)).all(-1).sum()))
+    res["a"] = {"out": out, "launches": counts, "points": n_pts, "objects": n_obj, "ply": ply,
+                "trajectory_gap_m": traj_gap, "frames": pngs, "tracked_mark_px": marks,
+                "track_ms_median": out["track_ms_median"]}
+    log(f"phase 22a run_tum --detections --save-dir --save-frames --frame-every 10: ATE {out['ate_rmse_m']:.5f} m, "
+        f"objects {out['num_objects']} labels {g['labels']}, recall {g['ev'].recall:.3f}, planes {g['planes_2_votes']}; "
+        f"launches {counts}; map_points.ply {ply['map_points']} for {n_pts} valid points, trajectory.ply "
+        f"{ply['trajectory']} (centres within {traj_gap:.2e} m), object_wireframes.ply {ply['object_wireframes']} for "
+        f"{n_obj} objects; frames {pngs}, tracked-mark pixels {marks}; track_ms_median "
+        f"{out['track_ms_median']:.3f} (phase 13: {tum13['out']['track_ms_median']:.3f})")
+    if counts["fast_nms"] != MONO_FRAMES or counts["hamming"] < 1:
+        raise AssertionError(f"phase 22 launches: {counts}")
+    if not (ply["map_points"] == {"vertex": n_pts} and ply["trajectory"] == {"vertex": MONO_FRAMES}
+            and ply["object_wireframes"] == {"vertex": 72 * n_obj} and traj_gap <= 1e-5):
+        raise AssertionError(f"phase 22 scene export: {res['a']}")
+    if len(pngs) != len(range(0, MONO_FRAMES, 10)) or len(marks) != len(pngs) or min(marks[1:]) < 100:
+        raise AssertionError(f"phase 22 annotated frames: {pngs}, marks {marks}")
+
+    # (b) visualize_map on the saved map ----------------------------------
+    with tr.span("b visualize_map 640x480"), CallTimes(object_render, "render_objects_png") as rt:
+        viz = visualize_map.main([os.path.join(save_dir, "map.npz"), "--out", os.path.join(tmp, "viz")])
+        torch.cuda.synchronize()
+    res["b"] = {"json": viz, "render_ms": rt.ms}
+    log(f"phase 22b visualize_map: {viz}, ms per render (CUDA events) {[round(x, 3) for x in rt.ms]}")
+    if not (viz["keyframes"] == int(m["num_kfs"]) and viz["points"] == n_pts and viz["objects"] == n_obj
+            and len(viz["renders"]) == 2 and all(os.path.exists(p) for p in viz["renders"])):
+        raise AssertionError(f"phase 22 visualize_map: {viz}")
+
+    # (c) a map with shapes: extract_objects and visualize_map -----------
+    with tr.span("c shaped map (train, 30 frames)"):
+        map_path, ckpt, params, dec_cfg, shaped = shaped_synthetic_map(tmp)
+        torch.cuda.synchronize()
+    sm = load_map(map_path)
+    due = np.nonzero(sm["obj_valid"] & sm["obj_shape_ok"])[0]
+    cli_cfg = DeepSDFConfig(code_dim=sm["obj_code"].shape[1])  # what --checkpoint reads
+    with tr.span("c expected meshes at 64"):
+        want = {}
+        for i in due:
+            mesh = extract_mesh_from_code(params, cli_cfg, torch.from_numpy(sm["obj_code"][i]).cuda(), resolution=64)
+            if len(mesh.vertices):
+                want[f"object_{i}.ply"] = {"vertex": len(mesh.vertices), "face": len(mesh.faces)}
+        torch.cuda.synchronize()
+    mesh_dir = os.path.join(tmp, "meshes")
+    with tr.span("c extract_objects --resolution 64"):
+        written = extract_objects.main([map_path, "--out", mesh_dir, "--checkpoint", ckpt, "--resolution", "64"])
+        torch.cuda.synchronize()
+    got = {n: ply_counts(os.path.join(mesh_dir, n)) for n in sorted(os.listdir(mesh_dir))}
+    with tr.span("c visualize_map with shapes"), CallTimes(object_render, "render_objects_png") as rt2:
+        viz2 = visualize_map.main([map_path, "--out", os.path.join(tmp, "viz_shapes"), "--checkpoint", ckpt])
+        torch.cuda.synchronize()
+    res["c"] = {"shape_ok": due.tolist(), "meshes": got, "render_ms": rt2.ms, "json": viz2}
+    log(f"phase 22c shaped map (run_synthetic's scene, 30 frames, decoder 16/96/8 in the reference layout): "
+        f"keyframes {shaped.stats['keyframes']}, objects {int(sm['obj_valid'].sum())}, shape_ok {due.tolist()}; "
+        f"extract_objects wrote {written}: {got}; "
+        f"expected {want}; visualize_map {viz2['renders']}, ms per render {[round(x, 3) for x in rt2.ms]}")
+    if len(due) < 1 or written != len(want) or got != want or len(viz2["renders"]) != 2:
+        raise AssertionError(f"phase 22 shapes: written {written}, {got} vs {want}")
+
+    # (d) the dense builder on the card and on the CPU -------------------
+    seq = TumSequence(seq_dir)
+    views = [seq.load(i)[:2] for i in range(MONO_FRAMES)]
+    poses = sysm.trajectory[:MONO_FRAMES]
+    built, ms = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for dev in ("cuda", "cpu"):
+        b = DenseBuilder(sysm.cfg.intr, device=dev)
+        with tr.span(f"d dense builder {dev}"):
+            t0 = time.perf_counter()
+            for (gray, depth), T in zip(views, poses):
+                b.process_frame(gray, depth, T)
+            torch.cuda.synchronize()
+            ms[dev] = (time.perf_counter() - t0) * 1e3 / MONO_FRAMES
+        built[dev] = b
+    shared = len(np.intersect1d(built["cuda"]._keys, built["cpu"]._keys))
+    most = max(built["cuda"].num_points, built["cpu"].num_points)
+    res["d"] = {"points": built["cuda"].num_points, "points_cpu": built["cpu"].num_points, "shared": shared,
+                "ms_per_frame": ms["cuda"], "ms_per_frame_cpu": ms["cpu"],
+                "peak_mb": (torch.cuda.max_memory_allocated() - held) / 2**20}
+    log(f"phase 22d DenseBuilder over {MONO_FRAMES} frames at stride 4, voxel 0.05 m: {res['d']['points']} points "
+        f"on the card, {res['d']['points_cpu']} on the CPU, {shared} keys shared ({most - shared} not), "
+        f"{ms['cuda']:.3f} ms per frame on the card (host clock, the host hash included; CPU {ms['cpu']:.3f}), "
+        f"peak device memory above what was held before {res['d']['peak_mb']:.1f} MiB")
+    if shared < 0.999 * most or shared < 1000:
+        raise AssertionError(f"phase 22 dense builder: {res['d']}")
+
+    # (e) the label tool ---------------------------------------------------
+    labels = os.path.join(tmp, "labels")
+    shutil.copytree(os.path.join(seq_dir, "detections"), labels)
+    text = io.StringIO()
+    with tr.span("e label_tool"), contextlib.redirect_stdout(text):
+        n0 = len(load_detection_cache(os.path.join(labels, "5.npz"))["label"])
+        label_tool.main(["det", "add", labels, "5", "--bbox", "10", "20", "50", "60", "--label", "2", "--prob", "0.8"])
+        label_tool.main(["det", "list", labels, "--frame", "5", "--all"])
+        label_tool.main(["det", "remove", labels, "5", str(n0)])
+        gt_file = os.path.join(tmp, "gt.npz")
+        label_tool.main(["gt", "from-map", gt_file, "--map", os.path.join(save_dir, "map.npz")])
+    with np.load(gt_file) as z:
+        n_gt = len(z["label"])
+    after = load_detection_cache(os.path.join(labels, "5.npz"))
+    lines = text.getvalue().splitlines()
+    log(f"phase 22e label_tool: {lines[0]}; {lines[-1]}; {len(lines)} lines; gt objects {n_gt} for {n_obj}")
+    if n_gt != n_obj or len(after["label"]) != n0 or "label=2 prob=0.80 bbox=(10,20,50,60)" not in text.getvalue():
+        raise AssertionError(f"phase 22 label tool: {lines}")
+
+    # (f) one tracked frame under the device trace ------------------------
+    trace_dir = os.path.join(tmp, "trace")
+    gray, depth = views[-1]
+    with tr.span("f one frame under device_trace"), device_trace(trace_dir, device="cuda"):
+        sysm.track_rgbd(gray, depth)
+        torch.cuda.synchronize()
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    names_k1 = traces and KERNEL_NAMES[0] in Path(trace_dir, traces[0]).read_text()
+    report = tr.report()
+    log(f"phase 22f device trace {traces} names {KERNEL_NAMES[0]}: {bool(names_k1)}; Tracer report {json.dumps(report)}")
+    if not names_k1:
+        raise AssertionError(f"phase 22: the device trace does not name {KERNEL_NAMES[0]}")
+    res["f"] = {"report": report}
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default=None, help="write a torch.profiler table here")
@@ -2578,6 +2850,7 @@ def main() -> int:
         d2 = detector2d_path(tmp, prof_dir)
         d3 = detector3d_path(tmp, prof_dir)
         dist21 = distribution_path(tmp)
+        tools = tools_path(tmp, rgbd_obj)
     st = stereo_kernels(kit.pop("pair"), gen)
     mk = mono_kernels(gen)
     kernels[0]["launches_kitti_path"] = kit["launches"]["fast_nms"]
@@ -2607,6 +2880,8 @@ def main() -> int:
                        ("detector3d_run_kitti", d3["run_kitti"])):
         kernels[0][f"launches_{name}_path"] = path["launches"]["fast_nms"]
         kernels[1][f"launches_{name}_path"] = path["launches"]["hamming_shapes"]
+    kernels[0]["launches_tools_path"] = tools["a"]["launches"]["fast_nms"]
+    kernels[1]["launches_tools_path"] = tools["a"]["launches"]["hamming_shapes"]
     for name in ("run_tum", "run_kitti"):
         kernels[0][f"launches_mesh2_{name}_path"] = [c["fast_nms"] for c in dist21[name]["launches_per_rank"]]
         kernels[1][f"launches_mesh2_{name}_path"] = [c["hamming"] for c in dist21[name]["launches_per_rank"]]

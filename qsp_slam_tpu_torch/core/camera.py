@@ -19,6 +19,12 @@ class Intrinsics(NamedTuple):
     cx: float
     cy: float
 
+    @staticmethod
+    def from_K(K) -> "Intrinsics":
+        """From a (3, 3) matrix (array or tensor), each entry rounded to f32."""
+        K = np.asarray(K.detach().cpu() if isinstance(K, torch.Tensor) else K, np.float32)
+        return Intrinsics(*(float(K[i, j]) for i, j in ((0, 0), (1, 1), (0, 2), (1, 2))))
+
 
 def intrinsic_matrix(intr: Intrinsics, device=None) -> torch.Tensor:
     """The (3, 3) f32 matrix K."""
@@ -63,6 +69,17 @@ def _distort_delta(x, y, dist):
     return radial, tx, ty
 
 
+def distort_points(uv: torch.Tensor, intr: Intrinsics, dist) -> torch.Tensor:
+    """Ideal pinhole pixels (..., 2) -> distorted pixels (the forward
+    Brown-Conrady model)."""
+    x = (uv[..., 0] - intr.cx) / intr.fx
+    y = (uv[..., 1] - intr.cy) / intr.fy
+    radial, tx, ty = _distort_delta(x, y, dist)
+    xd = x * radial + tx
+    yd = y * radial + ty
+    return torch.stack([intr.fx * xd + intr.cx, intr.fy * yd + intr.cy], dim=-1)
+
+
 def undistort_points(uv: torch.Tensor, intr: Intrinsics, dist, iters: int = 8) -> torch.Tensor:
     """Distorted pixels (..., 2) -> ideal pinhole pixels (fixed-point inverse
     of the Brown-Conrady model, `iters` iterations)."""
@@ -75,6 +92,11 @@ def undistort_points(uv: torch.Tensor, intr: Intrinsics, dist, iters: int = 8) -
         x = (xd - tx) / r_safe
         y = (yd - ty) / r_safe
     return torch.stack([intr.fx * x + intr.cx, intr.fy * y + intr.cy], dim=-1)
+
+
+def projection_matrix(T_cw: torch.Tensor, intr: Intrinsics) -> torch.Tensor:
+    """P = K [R|t] from world->camera transforms (..., 4, 4) -> (..., 3, 4)."""
+    return torch.einsum("ij,...jk->...ik", intrinsic_matrix(intr, T_cw.device), T_cw[..., :3, :4])
 
 
 def in_image(uv: torch.Tensor, width: int, height: int, border: int = 0) -> torch.Tensor:

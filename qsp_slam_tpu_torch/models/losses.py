@@ -17,6 +17,11 @@ from ..perception.ellipsoid_fit import jax_linspace
 from .deepsdf import DeepSDFConfig, decode_sdf
 
 
+def object_frame_points(T_ow: torch.Tensor, pts_w: torch.Tensor) -> torch.Tensor:
+    """World points -> normalized object frame through T_ow (its sR block)."""
+    return lie.transform_points(T_ow, pts_w)
+
+
 def sdf_residuals(params, cfg: DeepSDFConfig, xi, code, T_oc_init, pts_cam, valid, wb=None) -> torch.Tensor:
     """r_i = SDF(exp(xi) T_oc p_i, code), 0 where not valid. (..., P)."""
     p_obj = lie.transform_points(lie.exp_sim3(xi) @ T_oc_init, pts_cam)

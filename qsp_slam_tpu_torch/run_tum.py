@@ -6,19 +6,25 @@ detector's boxes at keyframes), and prints one JSON line:
 `SlamSystem.summary()`, the ATE, RPE and keyframe ATE against the ground
 truth when it has one, and `decoded_by`, the number of frames each
 decoder read.  With `--save-dir` it writes `CameraTrajectory.txt` (TUM
-format), `map.npz` with the objects and, when there are objects,
-`objects_render.png` (the object map rendered from the final camera over
-its gray frame).  The reference's scene export (`export_scene`) comes
-with slice 10.  It runs on CUDA unless given `--cpu`.
+format), `map.npz` with the objects, the scene's PLYs (`map_points.ply`,
+`object_wireframes.ply`, `trajectory.ply`; `viz/export.export_scene`)
+and, when there are objects, `objects_render.png` (the object map
+rendered from the final camera over its gray frame).  With
+`--save-frames DIR` every `--frame-every`-th tracked frame is drawn into
+`DIR/<index>.png` (`viz/frame_draw`: keypoints, tracked in green, the
+frame's detection boxes and a status bar).  It runs on CUDA unless given
+`--cpu`.
 
     python -m qsp_slam_tpu_torch.run_tum SEQUENCE_DIR [--config seq.yaml]
-        [--save-dir out] [--skip N] [--max-frames F] [--detections DIR |
-        --detector PARAMS_NPZ] [--global-ba] [--mesh N] [--cpu]
+        [--save-dir out] [--save-frames DIR [--frame-every N]] [--skip N]
+        [--max-frames F] [--detections DIR | --detector PARAMS_NPZ]
+        [--global-ba] [--mesh N] [--cpu]
 
 With `--mesh N` (N > 1) the command runs itself as N ranks
 (`parallel.multihost.spawn_ranks`): every rank tracks every frame with
 its replica of the system, the global BA runs map-sharded over the ranks
-from rank 0's state, rank 0 alone writes `--save-dir` and prints, each
+from rank 0's state, rank 0 alone writes `--save-dir` and
+`--save-frames` and prints, each
 rank writes its final map's SHA-256 on stderr (`[rank r/N] map ...`), and
 a failed rank fails the command.
 """
@@ -34,10 +40,6 @@ from collections import Counter
 
 import numpy as np
 
-_LATER = {
-    "save_frames": "slice 10 (tools: frame drawer)",
-}
-
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
@@ -50,7 +52,8 @@ def main(argv=None):
     ap.add_argument("--detections", default=None, help="directory of per-frame detection caches (<index>.npz)")
     ap.add_argument("--detector", default=None, metavar="PARAMS_NPZ",
                     help="learned 2D detector's weights (train_detector2d): detect online at keyframes")
-    ap.add_argument("--save-frames", default=None, help="annotated frames (not in this port yet)")
+    ap.add_argument("--save-frames", default=None, metavar="DIR", help="write annotated frames to DIR")
+    ap.add_argument("--frame-every", type=int, default=10, help="with --save-frames, draw every Nth frame")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
                     help="run the post-loop and final global BA map-sharded over N ranks, started here as N "
                          "processes (gloo on the CPU or on a shared card, NCCL with a card per rank); only rank "
@@ -59,9 +62,6 @@ def main(argv=None):
                     help="one full-map optimization pass after the sequence")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of CUDA")
     args = ap.parse_args(argv)
-    for name, where in _LATER.items():
-        if getattr(args, name) is not None:
-            raise NotImplementedError(f"--{name.replace('_', '-')} arrives with ROADMAP {where}")
     from .parallel.multihost import cli_mesh
 
     mesh, ranks_out = cli_mesh("qsp_slam_tpu_torch.run_tum", argv, args.mesh, args.cpu)
@@ -74,6 +74,8 @@ def main(argv=None):
     from .eval.ate import ate_rmse, rpe
     from .slam.system import SlamSystem
     from .slam.tracking import TrackingConfig
+    from .viz import frame_draw
+    from .viz.export import export_scene
 
     if args.config:
         from .slam.config import tracking_config_from_yaml
@@ -87,7 +89,8 @@ def main(argv=None):
         from .perception.detector2d import load_detector2d
 
         detector = load_detector2d(args.detector, device="cpu" if args.cpu else None)
-    sysm = SlamSystem(cfg, detector=detector, mesh=mesh, device="cpu" if args.cpu else None)
+    draw = lead and args.save_frames is not None
+    sysm = SlamSystem(cfg, detector=detector, mesh=mesh, keep_frame_info=draw, device="cpu" if args.cpu else None)
     timestamps, gt = [], []
     indices = list(range(0, len(seq), args.skip))
     if args.max_frames:
@@ -100,6 +103,15 @@ def main(argv=None):
             if os.path.exists(p):
                 det = load_detection_cache(p)
         sysm.track_rgbd(gray, depth, det)
+        if draw and len(timestamps) % args.frame_every == 0:
+            info = sysm.last_frame_info or {}
+            frame_draw.save_annotated(os.path.join(args.save_frames, f"{idx:06d}.png"), gray,
+                                      kp_xy=info.get("kp_xy"), kp_tracked=info.get("kp_tracked"),
+                                      bboxes=det.get("bbox") if det else None,
+                                      labels=det.get("label") if det else None,
+                                      probs=det.get("prob") if det else None,
+                                      bbox_valid=det.get("valid") if det else None,
+                                      status=frame_draw.frame_status(sysm, idx))
         timestamps.append(t)
         gt.append(T_cw_gt)
         if len(timestamps) % 50 == 0:
@@ -138,6 +150,7 @@ def main(argv=None):
         os.makedirs(args.save_dir, exist_ok=True)
         save_trajectory_tum(os.path.join(args.save_dir, "CameraTrajectory.txt"), timestamps, est)
         save_map(os.path.join(args.save_dir, "map.npz"), sysm.map_state, sysm.objects)
+        export_scene(args.save_dir, sysm.map_state, sysm.objects, trajectory=est)
         if int(sysm.objects.valid.sum()) > 0:
             from .viz.object_render import render_objects_png
 

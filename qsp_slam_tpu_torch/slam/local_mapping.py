@@ -17,6 +17,15 @@ from .map import MapState, _segment_count
 from .tracking import TrackingConfig
 
 
+def edge_budget_for(num_obs: int, emax: int, floor: int = 4096) -> int:
+    """Power-of-2 bucket >= num_obs, from `floor` up to `emax` (the
+    whole-store bucketing the system replaced by `window_edge_budget`)."""
+    b = floor
+    while b < num_obs and b < emax:
+        b *= 2
+    return min(b, emax)
+
+
 def window_edge_budget(window: int, cfg: TrackingConfig, emax: int) -> int:
     """Power-of-2 edge capacity for a covisibility window: each keyframe
     adds at most F tracked + F new-point observations, so window * 2F
@@ -194,3 +203,10 @@ def cull_keyframes(m: MapState, redundancy: float = 0.9) -> MapState:
     kf_valid[first] = torch.where(do, False, m.kf_valid[first])
     ob_valid = torch.where(do & (ob_kf == first), False, m.ob_valid)
     return m._replace(kf_valid=kf_valid, ob_valid=ob_valid)
+
+
+def cull_points(m: MapState, min_obs: int = 2) -> MapState:
+    """Disable points whose surviving observation count fell below
+    `min_obs`; the counts become `pt_obs_count`."""
+    obs = _segment_count(m.ob_valid, m.ob_pt, m.pt_xyz.shape[0])
+    return m._replace(pt_valid=m.pt_valid & (obs >= min_obs), pt_obs_count=obs)

@@ -125,7 +125,7 @@ def _to_device(x, device: torch.device) -> torch.Tensor:
 _GIVEN = frozenset({
     "cfg", "ba_window", "omax", "enable_objects", "enable_loop_closing", "enable_relocalization",
     "localization_only", "enable_structures", "enable_symmetry", "aspect_priors", "detector", "shape_prior",
-    "mesh", "device", "_pending_detections", "_pending_depth", "_pending_gray",
+    "mesh", "device", "keep_frame_info", "_pending_detections", "_pending_depth", "_pending_gray",
 })
 
 
@@ -188,6 +188,11 @@ class SlamSystem:
     # size-1 mesh use the single-device programs.
     mesh: Optional[Mesh] = None
     device: Optional[str] = None
+    # Keep each tracked frame's keypoints and tracked mask on the host in
+    # `last_frame_info` (the frame drawer's input, `run_tum --save-frames`);
+    # they ride the frame's one device->host copy.
+    keep_frame_info: bool = False
+    last_frame_info: Optional[dict] = field(init=False, default=None)
     map_state: MapState = field(init=False)
     loop_state: LoopState = field(init=False)
     objects: ObjectTable = field(init=False)
@@ -348,17 +353,31 @@ class SlamSystem:
     def _post_track(self, frame: FrameData, res: TrackResult, Tcw_pred, t0) -> np.ndarray:
         """Host policy after tracking: one device->host transfer, the
         consistency gate, velocity update and keyframe trigger, or the
-        recovery tiers of a lost frame (which make reads of their own)."""
+        recovery tiers of a lost frame (which make reads of their own).
+        With `keep_frame_info` the keypoints, the matched features and
+        their inlier flags ride the same transfer (f64 holds the indices
+        exactly)."""
         cfg = self.cfg
-        got = torch.cat([
+        fetch = [
             res.Tcw.reshape(16).to(torch.float64),
             torch.stack([res.num_inliers, res.pred_dev_t, res.pred_dev_r,
                          res.tracked_close, res.untracked_close]).to(torch.float64),
-        ]).cpu().numpy()
+        ]
+        if self.keep_frame_info:
+            fetch += [frame.feats.xy.reshape(-1).to(torch.float64), res.match_inlier.to(torch.float64),
+                      res.match_pt.to(torch.float64)]
+        got = torch.cat(fetch).cpu().numpy()
         Tcw_new = got[:16].reshape(4, 4).astype(np.float32)
-        num_inliers, dev_t, dev_r, n_close_trk, n_close_new = got[16:]
+        num_inliers, dev_t, dev_r, n_close_trk, n_close_new = got[16:21]
         num_inliers = int(num_inliers)
         self.stats["track_ms"].append((time.perf_counter() - t0) * 1e3)
+        if self.keep_frame_info:
+            F, N = frame.feats.xy.shape[0], res.match_pt.shape[0]
+            xy, mi, mp = np.split(got[21:], [2 * F, 2 * F + N])
+            mi, mp = mi != 0, mp.astype(np.int64)
+            kp_tracked = np.zeros(F, bool)
+            kp_tracked[mp[mi & (mp >= 0)]] = True
+            self.last_frame_info = {"kp_xy": xy.reshape(F, 2).astype(np.float32), "kp_tracked": kp_tracked}
         # A solution far from the prediction is a repetitive-texture
         # mismatch, not tracking.
         tracked = bool(num_inliers >= cfg.min_track_inliers and dev_t < 0.5 and dev_r < 0.5)

@@ -55,15 +55,15 @@ def _tangents(rng, n=64):
 
 class TestPackage:
     def test_imports_no_jax_and_no_reference_package(self):
-        """Importing every module of the port loads no `jax` module and
-        nothing of `qsp_slam_tpu` (checked in a fresh interpreter)."""
+        """Importing every module of the port loads no `jax` module, nothing
+        of `qsp_slam_tpu` and no PIL (checked in a fresh interpreter)."""
         code = (
             "import importlib, json, pkgutil, sys\n"
             "import qsp_slam_tpu_torch as p\n"
             "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
             "for m in mods: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-            "or m == 'jaxlib' or m == 'qsp_slam_tpu' or m.startswith('qsp_slam_tpu.')]\n"
+            "or m == 'jaxlib' or m == 'qsp_slam_tpu' or m.startswith('qsp_slam_tpu.') or m == 'PIL']\n"
             "print(json.dumps({'n': len(mods), 'bad': bad, 'mods': mods}))\n"
         )
         out = subprocess.run(
@@ -75,14 +75,21 @@ class TestPackage:
         assert got["bad"] == [], got["bad"]
         for m in ("perception.detector2d", "perception.detector3d", "train_detector2d", "train_detector3d",
                   "data.synthetic", "parallel.mesh", "parallel.multihost", "parallel.sharded_ba",
-                  "parallel.map_sharded_ba", "parallel.replay", "parallel.dryrun", "slam.distributed_mapping"):
+                  "parallel.map_sharded_ba", "parallel.replay", "parallel.dryrun", "slam.distributed_mapping",
+                  "viz.export", "viz.frame_draw", "utils.tracing", "perception.dense_builder", "extract_objects",
+                  "visualize_map", "label_tool"):
             assert f"qsp_slam_tpu_torch.{m}" in got["mods"], m
 
     def test_no_source_imports_reference(self):
         """No module of the port, nor `chip_smoke.py`, names `jax` or
-        `qsp_slam_tpu` in an import."""
+        `qsp_slam_tpu` in an import; the tools and `chip_smoke.py` name no
+        PIL either (they draw and write PNGs without it)."""
+        tools = {"viz/export.py", "viz/frame_draw.py", "utils/tracing.py", "perception/dense_builder.py",
+                 "extract_objects.py", "visualize_map.py", "label_tool.py", "run_tum.py"}
         offenders = []
         for path in [*(REPO / "qsp_slam_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
+            rel = path.relative_to(REPO / "qsp_slam_tpu_torch").as_posix() if path.name != "chip_smoke.py" else ""
+            banned = ("jax", "jaxlib", "qsp_slam_tpu") + (("PIL",) if rel in tools or not rel else ())
             for node in ast.walk(ast.parse(path.read_text())):
                 names = []
                 if isinstance(node, ast.Import):
@@ -91,7 +98,7 @@ class TestPackage:
                     names = [node.module or ""]
                 for n in names:
                     root = n.split(".")[0]
-                    if root in ("jax", "jaxlib", "qsp_slam_tpu"):
+                    if root in banned:
                         offenders.append(f"{path.name}: {n}")
         assert offenders == []
 

@@ -488,3 +488,52 @@ def test_sharded_ba_two_gloo_ranks_on_the_card_match_one_nccl_rank(gen, tmp_path
         else:
             np.testing.assert_allclose(v, outs[1][0][k], rtol=0, atol=1e-3 if k.endswith("/points") else 1e-4,
                                        err_msg=k)
+
+
+def test_frame_info_on_the_card_matches_cpu(gen):
+    """`keep_frame_info` on the card and on the CPU over 8 frames: every
+    tracked frame's keypoints within 1e-3 px and the tracked flags equal on
+    >= 99% of all keypoints."""
+    cfg = TrackingConfig(orb=OrbConfig(num_features=500))
+    room = make_room(device="cpu")
+    Tcw_gt = orbit_trajectory(8)
+    frames = [tuple(x.numpy() for x in render_frame(room, Tcw_gt[i], cfg.intr)) for i in range(8)]
+    infos = {}
+    for dev in ("cuda", "cpu"):
+        s = SlamSystem(cfg, kmax=16, nmax=2048, emax=16384, ba_window=6, keep_frame_info=True, device=dev)
+        infos[dev] = []
+        for f in frames:
+            s.track_rgbd(*f)
+            infos[dev].append(s.last_frame_info)
+    assert infos["cuda"][0] is None and infos["cpu"][0] is None
+    agree = total = 0
+    for a, b in zip(infos["cpu"][1:], infos["cuda"][1:]):
+        np.testing.assert_allclose(b["kp_xy"], a["kp_xy"], atol=1e-3)
+        agree += int((a["kp_tracked"] == b["kp_tracked"]).sum())
+        total += len(a["kp_tracked"])
+        assert b["kp_tracked"].sum() > 50
+    assert agree >= 0.99 * total
+
+
+def test_dense_builder_on_the_card_matches_cpu(gen):
+    """Three room views through `DenseBuilder` on the card and on the CPU:
+    >= 99.9% of the voxel keys shared (a one-ulp unprojection difference
+    can move a point across a voxel face, and then a voxel's first point
+    too) and >= 99.9% of the shared voxels' first points within 1e-4 m."""
+    from qsp_slam_tpu_torch.perception.dense_builder import DenseBuilder
+
+    cfg = TrackingConfig()
+    room = make_room(device="cpu")
+    Tcw_gt = orbit_trajectory(7, step=0.05)
+    frames = [(*(x.numpy() for x in render_frame(room, Tcw_gt[i], cfg.intr)), Tcw_gt[i]) for i in (0, 3, 6)]
+    built = {}
+    for dev in ("cuda", "cpu"):
+        b = DenseBuilder(cfg.intr, voxel=0.1, device=dev)
+        for gray, depth, T in frames:
+            b.process_frame(gray, depth, T)
+        built[dev] = b
+    kc, kp = built["cuda"]._keys, built["cpu"]._keys
+    shared, ic, ip = np.intersect1d(kc, kp, return_indices=True)
+    assert len(shared) >= 0.999 * max(len(kc), len(kp)) and len(shared) > 1000
+    gap = np.abs(built["cuda"].cloud()[0][ic] - built["cpu"].cloud()[0][ip]).max(axis=1)
+    assert np.mean(gap <= 1e-4) >= 0.999

@@ -271,11 +271,12 @@ class TestRunTum:
     @pytest.mark.parametrize("flag", [["--detections", "d"], ["--mesh", "2"], ["--detector", "w.npz"],
                                       ["--save-frames", "f"]])
     def test_later_slices_refuse(self, flag):
-        """Later slices refuse; `--detections` and `--detector` are taken and
-        the run goes on to read the sequence (`tests/test_torch_structures.py`
-        and `tests/test_torch_detector2d.py` run them); `--mesh 2` is taken
-        and runs the command as two ranks, each of which fails to read the
-        sequence, which fails the command
+        """Every flag of the later slices is taken: `--detections`,
+        `--detector` and `--save-frames` go on to read the sequence, which
+        fails here (`tests/test_torch_structures.py`,
+        `tests/test_torch_detector2d.py` and `tests/test_torch_tools_cli.py`
+        run them); `--mesh 2` runs the command as two ranks, each of which
+        fails to read the sequence, which fails the command
         (`tests/test_torch_distributed_system.py` runs it)."""
         from qsp_slam_tpu_torch import run_tum
 
@@ -283,8 +284,7 @@ class TestRunTum:
             with pytest.raises(RuntimeError, match="rgb.txt"):
                 run_tum.main(["unused", *flag, "--cpu"])
             return
-        taken = flag[0] in ("--detections", "--detector")
-        with pytest.raises(FileNotFoundError if taken else NotImplementedError, match="rgb.txt" if taken else "slice"):
+        with pytest.raises(FileNotFoundError, match="rgb.txt"):
             run_tum.main(["unused", *flag, "--cpu"])
 
 
