@@ -12,6 +12,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.tracing import HOST_READS, count
+
 
 class Intrinsics(NamedTuple):
     fx: float
@@ -28,6 +30,7 @@ class Intrinsics(NamedTuple):
 
 def intrinsic_matrix(intr: Intrinsics, device=None) -> torch.Tensor:
     """The (3, 3) f32 matrix K."""
+    count(HOST_READS)  # a copy from host memory: waits for the card
     return torch.tensor([[intr.fx, 0.0, intr.cx], [0.0, intr.fy, intr.cy], [0.0, 0.0, 1.0]],
                         dtype=torch.float32, device=device)
 

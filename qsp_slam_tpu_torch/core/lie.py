@@ -16,6 +16,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..utils.tracing import HOST_READS, count
+
 _EPS = 1e-8
 
 
@@ -143,6 +145,8 @@ def rt_to_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
     bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
+    if not batch:  # a scalar written into a 0-d view is copied from host memory: that waits for the card
+        count(HOST_READS)
     bottom[..., 0, 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
 

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.tracing import HOST_READS, count
+
 
 def normalize(pi: torch.Tensor) -> torch.Tensor:
     """Scale so the normal part has unit norm. (..., 4) -> (..., 4)."""
@@ -27,6 +29,7 @@ def point_distance(pi: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
 
 def transform(pi: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     """The plane moved by T (points map as x' = T x): pi' = T^-T pi."""
+    count(HOST_READS)  # `inv` checks its factorisation on the host
     Tinv_T = torch.linalg.inv(T).transpose(-1, -2)
     return normalize(torch.einsum("...ij,...j->...i", Tinv_T, pi))
 

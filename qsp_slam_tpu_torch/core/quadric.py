@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.tracing import HOST_READS, count
 from . import lie
 
 
@@ -56,6 +57,7 @@ def similarity_transform(e: torch.Tensor) -> torch.Tensor:
 def dual_quadric(e: torch.Tensor) -> torch.Tensor:
     """Dual quadric Q* = T diag(1, 1, 1, -1) T^T."""
     T = similarity_transform(e)
+    count(HOST_READS)  # a copy from host memory: waits for the card
     D = torch.tensor([1.0, 1.0, 1.0, -1.0], dtype=e.dtype, device=e.device)
     return torch.einsum("...ij,j,...kj->...ik", T, D, T)
 

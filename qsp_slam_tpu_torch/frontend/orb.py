@@ -21,6 +21,7 @@ import torch
 
 from .. import resolve_device
 from ..ops.fast_nms import MAX_LEVELS, fast_score_nms_pyramid
+from ..utils.tracing import HOST_READS, count
 from .fast import Keypoints, select_keypoints
 from .pyramid import PyramidConfig, build_pyramid, gaussian_blur
 
@@ -63,6 +64,7 @@ class Features(NamedTuple):
 
 
 def _consts(device: torch.device):
+    count(HOST_READS, 3)  # three copies from host memory, each waits for the card
     return (
         torch.from_numpy(_PATTERN).to(device),
         torch.from_numpy(_CIRC * _DX.astype(np.float32)).to(device),

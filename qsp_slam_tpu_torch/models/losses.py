@@ -14,6 +14,7 @@ import torch
 
 from ..core import lie
 from ..perception.ellipsoid_fit import jax_linspace
+from ..utils.tracing import HOST_READS, count
 from .deepsdf import DeepSDFConfig, decode_sdf
 
 
@@ -31,6 +32,7 @@ def sdf_residuals(params, cfg: DeepSDFConfig, xi, code, T_oc_init, pts_cam, vali
 def render_samples(rays_cam, depth_obs, num_samples: int = 32, depth_range: float = 0.6):
     """Sample depths around each observation (at least 0.05) and their
     camera points: -> d (..., R, S), pts (..., R * S, 3)."""
+    count(HOST_READS)  # a copy from host memory: waits for the card
     ts = jax_linspace(-depth_range, depth_range, num_samples).to(depth_obs.device)
     d = torch.clamp(depth_obs[..., None] + ts, min=0.05)
     pts = rays_cam[..., None, :] * d[..., None]

@@ -23,6 +23,7 @@ from torch.func import jvp, vmap
 
 from ..core import lie
 from ..opt.pose_opt import solve_or_nan
+from ..utils.tracing import HOST_READS, TRACER, count
 from . import losses
 from .deepsdf import DeepSDFConfig, weights
 
@@ -80,6 +81,7 @@ def _reconstruct(params, dec_cfg, opt_cfg, T_oc_init, code_init, pts_cam, pts_va
     zeros7 = torch.zeros((B, 7), dtype=f32, device=dev)
     eye = torch.eye(D, dtype=f32, device=dev)
     prior = torch.zeros(D, dtype=f32, device=dev)
+    count(HOST_READS)  # `prior[6] =` copies its scalar from host memory, which waits for the card
     prior[3:5], prior[6], prior[7:] = opt_cfg.w_rot, opt_cfg.w_scale, opt_cfg.w_code
     pv, rv = pts_valid.to(f32), rays_valid.to(f32)
 
@@ -102,22 +104,24 @@ def _reconstruct(params, dec_cfg, opt_cfg, T_oc_init, code_init, pts_cam, pts_va
     lmbda = torch.full((B,), opt_cfg.lm_lambda0, dtype=f32, device=dev)
     cost = cost0 = cost_at(code, T_base)
     for _ in range(opt_cfg.iters):
-        theta = torch.cat([zeros7, code], dim=-1)
-        r, J = vmap(lambda v: jvp(lambda t: residuals(t, T_base), (theta,), (v.expand(B, D),)))(eye)
-        r, J = r[0], J.permute(1, 2, 0)  # (B, M), (B, M, D)
-        w = torch.cat(robust_weights(r[:, :pts_cam.shape[1]], r[:, pts_cam.shape[1]:]), dim=-1)
-        Jw = J * w[..., None]
-        H = J.transpose(-1, -2) @ Jw + torch.diag(prior)
-        g = -(Jw.transpose(-1, -2) @ r[..., None])[..., 0] - prior * theta
-        delta = solve_or_nan(H + lmbda[:, None, None] * H * eye + 1e-8 * eye, g)
-        T_try = lie.exp_sim3(delta[:, :7]) @ T_base
-        code_try = code + delta[:, 7:]
-        c_try = cost_at(code_try, T_try)
-        accept = c_try < cost
-        T_base = torch.where(accept[:, None, None], T_try, T_base)
-        code = torch.where(accept[:, None], code_try, code)
-        lmbda = torch.clamp(torch.where(accept, lmbda * 0.33, lmbda * 3.0), 1e-7, 1e6)
-        cost = torch.where(accept, c_try, cost)
+        with TRACER.span("shapes.trip"):
+            theta = torch.cat([zeros7, code], dim=-1)
+            with TRACER.span("shapes.jacobian"):
+                r, J = vmap(lambda v: jvp(lambda t: residuals(t, T_base), (theta,), (v.expand(B, D),)))(eye)
+            r, J = r[0], J.permute(1, 2, 0)  # (B, M), (B, M, D)
+            w = torch.cat(robust_weights(r[:, :pts_cam.shape[1]], r[:, pts_cam.shape[1]:]), dim=-1)
+            Jw = J * w[..., None]
+            H = J.transpose(-1, -2) @ Jw + torch.diag(prior)
+            g = -(Jw.transpose(-1, -2) @ r[..., None])[..., 0] - prior * theta
+            delta = solve_or_nan(H + lmbda[:, None, None] * H * eye + 1e-8 * eye, g)
+            T_try = lie.exp_sim3(delta[:, :7]) @ T_base
+            code_try = code + delta[:, 7:]
+            c_try = cost_at(code_try, T_try)
+            accept = c_try < cost
+            T_base = torch.where(accept[:, None, None], T_try, T_base)
+            code = torch.where(accept[:, None], code_try, code)
+            lmbda = torch.clamp(torch.where(accept, lmbda * 0.33, lmbda * 3.0), 1e-7, 1e6)
+            cost = torch.where(accept, c_try, cost)
     n_act = torch.sum(pv, dim=-1) + torch.sum(rv, dim=-1)
     is_good = (cost < cost0) & (cost / torch.clamp(n_act, min=1.0) < 0.05) & torch.isfinite(T_base).all(-1).all(-1)
     return ShapeOptResult(T_oc=T_base, code=code, cost=cost, is_good=is_good)

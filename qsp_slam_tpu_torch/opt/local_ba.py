@@ -20,6 +20,7 @@ import torch
 
 from ..core import lie
 from ..core.camera import Intrinsics
+from ..utils.tracing import HOST_READS, count, fetch
 from . import robust
 from .reproj import ReprojEdges, edge_chi2, residuals_and_jacobians
 from .schur import NormalBlocks, build_normal_blocks_fast, point_slot_table, solve_schur
@@ -102,12 +103,14 @@ def _lm_stage(
         converged = accept & (cost - new_cost <= early_exit_rtol * cost) & torch.isfinite(cost)
         return (Tcw_n, points_n, blocks_n, lmbda_n, cost_n), prop_n, converged
 
+    count(HOST_READS, 2)  # the two scalars below are copies from host memory: each waits for the card
     lmbda0 = torch.tensor(init_lambda, dtype=Tcw.dtype, device=Tcw.device)
     inf0 = torch.tensor(math.inf, dtype=Tcw.dtype, device=Tcw.device)
     acc, prop, _ = step((Tcw, points, None, lmbda0, inf0), (Tcw, points))
     for _ in range(iters):
         acc, prop, conv = step(acc, prop)
-        if early_exit_rtol > 0.0 and bool(conv):
+        count("local_ba_trips")
+        if early_exit_rtol > 0.0 and bool(fetch(conv)):
             break
     return acc[0], acc[1], acc[4]
 

@@ -19,6 +19,7 @@ import torch
 
 from ..core import lie
 from ..core.camera import Intrinsics
+from ..utils.tracing import HOST_READS, count, fetch
 from . import robust
 from .reproj import ReprojEdges, edge_chi2, residuals_and_jacobians
 
@@ -97,13 +98,15 @@ def optimize_pose(
     for rnd in range(rounds):
         use_huber = rnd < 2
         act_f = active.to(Tcw.dtype)
+        count(HOST_READS)  # a copy from host memory: waits for the card
         lmbda = torch.tensor(1e-3, dtype=Tcw.dtype, device=Tcw.device)
         cost = cost_at(Tcw, act_f, use_huber)
         for _ in range(iters_per_round):
             prev = cost
             Tcw, lmbda, cost = lm_iter(Tcw, lmbda, cost, use_huber, act_f)
+            count("pose_lm_iters")
             if early_exit_rtol > 0.0 and bool(
-                (cost < prev) & (prev - cost <= early_exit_rtol * prev)
+                fetch((cost < prev) & (prev - cost <= early_exit_rtol * prev))
             ):
                 break
         active = gate(Tcw)

@@ -18,6 +18,7 @@ import torch
 from torch.func import jvp, vmap
 
 from ..core import quadric
+from ..utils.tracing import HOST_READS, count
 
 
 class ObjectObservations(NamedTuple):
@@ -50,6 +51,7 @@ def gravity_residual(e: torch.Tensor, ground_normal_w: torch.Tensor) -> torch.Te
     vector (3,) or one per object (..., 3)."""
     z_axis = quadric.euler_to_rotmat(e[..., 3:6])[..., :, 2]
     up = ground_normal_w / torch.linalg.vector_norm(ground_normal_w, dim=-1, keepdim=True)
+    count(HOST_READS, 2)  # two copies from host memory, each waits for the card
     ex = torch.tensor([1.0, 0.0, 0.0], dtype=up.dtype, device=up.device)
     ey = torch.tensor([0.0, 1.0, 0.0], dtype=up.dtype, device=up.device)
     a = torch.where(torch.abs(up[..., 0:1]) < 0.9, ex, ey)

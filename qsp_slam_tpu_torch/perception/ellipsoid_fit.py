@@ -18,6 +18,7 @@ import torch
 
 from ..core import quadric
 from ..core.camera import Intrinsics, backproject, intrinsic_matrix
+from ..utils.tracing import HOST_READS, count
 
 
 class EllipsoidFitResult(NamedTuple):
@@ -72,6 +73,7 @@ def sample_bbox_depth_points(
     """Back-project a uniform pixel sample inside each box -> (pts (D, S, 3),
     valid (D, S))."""
     H, W = depth.shape
+    count(HOST_READS)  # the draw's copy from host memory waits for the card
     unit = draw(gen, bbox.shape[0], num_samples).to(depth.device)
     u = _scaled(unit[..., 0], bbox[:, 0:1], bbox[:, 2:3])
     v = _scaled(unit[..., 1], bbox[:, 1:2], bbox[:, 3:4])
@@ -153,6 +155,7 @@ def fit_ellipsoid_points(
     n_core = torch.sum(core, dim=-1)
 
     up = g[:, :3] / torch.linalg.vector_norm(g[:, :3], dim=-1, keepdim=True)
+    count(HOST_READS, 3)  # ex, ey and the yaws below are copies from host memory: each waits for the card
     ex = torch.tensor([1.0, 0.0, 0.0], dtype=dt, device=dev)
     ey = torch.tensor([0.0, 1.0, 0.0], dtype=dt, device=dev)
     a = torch.where(torch.abs(up[:, 0:1]) < 0.9, ex, ey)

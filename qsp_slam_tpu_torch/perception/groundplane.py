@@ -17,6 +17,7 @@ import torch
 
 from ..core import plane as plane_mod
 from ..core.camera import Intrinsics, backproject
+from ..utils.tracing import HOST_READS, count
 
 
 class GroundPlaneResult(NamedTuple):
@@ -73,6 +74,7 @@ def ransac_plane(
     winner when it leaves that cone or breaks feasibility."""
     M = pts.shape[0]
     dev = pts.device
+    count(HOST_READS, 2)  # the draws' copies from host memory wait for the card
     u, u1 = (x.to(dev) for x in draw(gen, num_hyp))
     V = torch.clamp(torch.sum(valid.to(torch.int32)), min=1)
     pool_u = torch.argsort((~valid).to(torch.uint8), stable=True)  # valid indices first
@@ -80,6 +82,7 @@ def ransac_plane(
     if lowest:
         hint_u = normal_hint / torch.linalg.vector_norm(normal_hint)
         pool = torch.argsort(torch.where(valid, pts @ hint_u, torch.inf), stable=True)
+        count(HOST_READS)  # a copy from host memory: waits for the card
         Vp = torch.maximum((V + 3) // 4, torch.minimum(V, torch.tensor(3, device=dev)))
         half = num_hyp // 2
         idx = torch.cat([_pick(pool, u[:half], Vp, M), _pick(pool_u, u[half:], V, M)])
@@ -121,6 +124,7 @@ def ransac_plane(
     w = ((torch.abs(pts @ n_b + d_b) < inlier_th) & valid).to(pts.dtype)
     mu = torch.sum(pts * w[:, None], dim=0) / torch.clamp(torch.sum(w), min=1.0)
     X = (pts - mu) * w[:, None]
+    count(HOST_READS)  # `eigh` checks its result on the host
     n_r = torch.linalg.eigh(X.T @ X)[1][:, 0]
     n_r = n_r * torch.sign(torch.sum(n_r * n_b) + 1e-12)
     d_r = -torch.dot(n_r, mu)
@@ -159,6 +163,7 @@ def estimate_ground_plane_points(
     """The ground plane of a point set (keypoint clouds, map points),
     oriented toward `camera_up_hint`; the threshold defaults to
     `adaptive_inlier_th`."""
+    count(HOST_READS)  # a copy from host memory: waits for the card
     hint = torch.tensor(camera_up_hint, dtype=pts.dtype, device=pts.device)
     if inlier_th is None:
         inlier_th = adaptive_inlier_th(pts, valid)

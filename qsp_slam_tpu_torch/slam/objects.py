@@ -18,6 +18,7 @@ import torch
 from .. import resolve_device
 from ..core import lie, quadric
 from ..opt.quadric_factors import ObjectObservations, refine_object
+from ..utils.tracing import HOST_READS, count
 
 
 class ObjectTable(NamedTuple):
@@ -165,6 +166,7 @@ def integrate_keyframe(
     T_wc = lie.inv_se3(Tcw)
     e_w = quadric.transform_ellipsoid(det_ellipsoid_cam, T_wc)  # (D, 9)
     T_oc = lie.inv_se3(lie.rt_to_se3(quadric.euler_to_rotmat(det_ellipsoid_cam[:, 3:6]), det_ellipsoid_cam[:, 0:3]))
+    count(HOST_READS)  # a copy from host memory: waits for the card
     kf = torch.tensor(kf_id, dtype=torch.int32, device=dev)
     tb = table._asdict()
 

@@ -16,6 +16,7 @@ import torch
 from .. import resolve_device
 from ..frontend.fast import topk_stable
 from ..frontend.orb import DESC_BITS
+from ..utils.tracing import HOST_READS, count
 
 NUM_WORDS = 512
 
@@ -58,6 +59,7 @@ def bow_signature(desc_pm: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """(F, 256) ±1 descriptors -> L2-normalized LSH histogram (SIG_DIM,):
     per table, the B sampled bits packed to a word in [0, 2^B)."""
     dev = desc_pm.device
+    count(HOST_READS, 4)  # two copies from host memory, and `bincount` reads its extent twice
     idx = torch.from_numpy(_LSH_SUBSETS).to(dev).long()  # (T, B)
     bits = (desc_pm[:, idx] > 0).to(torch.int64)  # (F, T, B)
     pw = torch.from_numpy(1 << np.arange(LSH_BITS)).to(dev)

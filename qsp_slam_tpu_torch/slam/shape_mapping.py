@@ -24,6 +24,7 @@ from ..models.deepsdf import DeepSDFConfig
 from ..models.shape_opt import ShapeOptConfig, ShapeOptResult, flip_hypotheses, pick_flips, reconstruct_object
 from ..perception.ellipsoid_fit import Draw, _scaled, bbox_sample
 from .map import scatter_set_last
+from ..utils.tracing import HOST_READS, count, fetch
 from .objects import ObjectTable
 
 SCALE_MARGIN = 1.4  # ellipsoid max half-axis -> unit-sphere scale margin
@@ -72,6 +73,7 @@ def gather_shape_inputs(
     front = quadric.check_observability(table.ellipsoid, Tcw[None])
     due = table.valid & front & (table.obs_count >= min_obs) & ((table.obs_count % recon_every) == 0)
 
+    count(HOST_READS)  # the draw's copy from host memory waits for the card
     unit = draw(gen, O, num_samples).to(dev)
     u = _scaled(unit[..., 0], bbox[:, 0:1], bbox[:, 2:3])
     v = _scaled(unit[..., 1], bbox[:, 1:2], bbox[:, 3:4])
@@ -142,10 +144,12 @@ def reconstruct_due_objects(
     orientation hypotheses; per object the lowest-cost converged
     hypothesis is folded back (code, Tow_shape = T_oc T_cw, shape_ok).
     One host read (`due`); no work when no object is due."""
-    idx = torch.nonzero(inputs.due.cpu())[:, 0].to(table.code.device)
+    idx = torch.nonzero(fetch(inputs.due))[:, 0]
     n = int(idx.shape[0])
     if n == 0:
         return table
+    count(HOST_READS)  # the index's copy back to the card waits for it too
+    idx = idx.to(table.code.device)
     F = max(1, opt_cfg.num_flips)
     T_hyp = flip_hypotheses(inputs.T_oc_init[idx], F).reshape(n * F, 4, 4)
     args = [x[idx].repeat_interleave(F, dim=0) for x in (table.code, inputs.pts_cam, inputs.pts_ok, inputs.rays,

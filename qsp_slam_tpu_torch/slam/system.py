@@ -58,6 +58,7 @@ from ..perception.manhattan import empty_plane_set, extract_manhattan_planes, up
 from ..perception.prior_infer import default_priors, generate_init_guess
 from ..perception.relations import extract_relations, select_support_plane, support_planes_for_objects
 from ..perception.symmetry import estimate_symmetry
+from ..utils.tracing import HOST_READS, TRACER, count, fetch
 from ..parallel.mesh import Mesh, broadcast, broadcast_object
 from . import map as mapmod
 from .distributed_mapping import global_ba_sharded, global_joint_ba_sharded
@@ -110,7 +111,10 @@ from .tracking import (
 
 def _to_device(x, device: torch.device) -> torch.Tensor:
     """Camera input (array or tensor) -> tensor on `device`; uint16 depth
-    crosses as its int16 bit pattern and is widened on the device."""
+    crosses as its int16 bit pattern and is widened on the device.  A copy
+    from host memory waits for the device and counts as a host read."""
+    if not isinstance(x, torch.Tensor) or x.device.type == "cpu":
+        count(HOST_READS)
     if isinstance(x, torch.Tensor):
         return x.to(device)
     x = np.ascontiguousarray(x)
@@ -135,6 +139,7 @@ def _frame(track):
 
     @functools.wraps(track)
     def run(self, *args, **kwargs):
+        TRACER.new_frame()
         track(self, *args, **kwargs)
         self._end_frame()
         return self.Tcw
@@ -142,10 +147,19 @@ def _frame(track):
     return run
 
 
+def _upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array (a pose, a plane) on `device`: the copy waits for the
+    device, so it counts as a host read."""
+    count(HOST_READS)
+    return torch.from_numpy(x).to(device)
+
+
 def _det_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """A detection field (numpy array or tensor) as a tensor on `device`."""
     if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(np.asarray(x))
+    if x.device.type == "cpu":  # host memory: the copy waits for the device
+        count(HOST_READS)
     return x.to(device, dtype)
 
 
@@ -224,8 +238,7 @@ class SlamSystem:
         self._clear_state()
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        fetch(device=self.device)
 
     # ------------------------------------------------------------------
     def set_localization_mode(self, on: bool = True) -> None:
@@ -291,12 +304,12 @@ class SlamSystem:
             self._initialize(process_frame(gray, depth, self.cfg))
             self.trajectory.append(self.Tcw.copy())
             return self.Tcw
-        t0 = time.perf_counter()
+        span = TRACER.begin("track")
         Tcw_pred = self.velocity @ self.Tcw
         frame, res = process_and_track(
-            gray, depth, self.map_state, torch.from_numpy(Tcw_pred).to(self.device), self.cfg
+            gray, depth, self.map_state, _upload(Tcw_pred, self.device), self.cfg
         )
-        return self._post_track(frame, res, Tcw_pred, t0)
+        return self._post_track(frame, res, Tcw_pred, span)
 
     @_frame
     def track_stereo(self, gray_left, gray_right, detections=None) -> np.ndarray:
@@ -316,12 +329,12 @@ class SlamSystem:
             self._initialize(process_frame_stereo(gl, gr, self.cfg))
             self.trajectory.append(self.Tcw.copy())
             return self.Tcw
-        t0 = time.perf_counter()
+        span = TRACER.begin("track")
         Tcw_pred = self.velocity @ self.Tcw
         frame, res = process_and_track_stereo(
-            gl, gr, self.map_state, torch.from_numpy(Tcw_pred).to(self.device), self.cfg
+            gl, gr, self.map_state, _upload(Tcw_pred, self.device), self.cfg
         )
-        return self._post_track(frame, res, Tcw_pred, t0)
+        return self._post_track(frame, res, Tcw_pred, span)
 
     @_frame
     def track_mono(self, gray, detections=None) -> np.ndarray:
@@ -343,34 +356,36 @@ class SlamSystem:
                 self._mono_bootstrap(process_frame(gray, zero_depth, cfg))
             self.trajectory.append(self.Tcw.copy())
             return self.Tcw
-        t0 = time.perf_counter()
+        span = TRACER.begin("track")
         Tcw_pred = self.velocity @ self.Tcw
         frame, res = process_and_track(
-            gray, zero_depth, self.map_state, torch.from_numpy(Tcw_pred).to(self.device), cfg
+            gray, zero_depth, self.map_state, _upload(Tcw_pred, self.device), cfg
         )
-        return self._post_track(frame, res, Tcw_pred, t0)
+        return self._post_track(frame, res, Tcw_pred, span)
 
-    def _post_track(self, frame: FrameData, res: TrackResult, Tcw_pred, t0) -> np.ndarray:
-        """Host policy after tracking: one device->host transfer, the
-        consistency gate, velocity update and keyframe trigger, or the
-        recovery tiers of a lost frame (which make reads of their own).
-        With `keep_frame_info` the keypoints, the matched features and
-        their inlier flags ride the same transfer (f64 holds the indices
+    def _post_track(self, frame: FrameData, res: TrackResult, Tcw_pred, span) -> np.ndarray:
+        """Host policy after tracking: one device->host transfer, which
+        ends the `track` span begun by the caller, the consistency gate,
+        velocity update and keyframe trigger, or the recovery tiers of a
+        lost frame (which make reads of their own).  With
+        `keep_frame_info` the keypoints, the matched features and their
+        inlier flags ride the same transfer (f64 holds the indices
         exactly)."""
         cfg = self.cfg
-        fetch = [
+        parts = [
             res.Tcw.reshape(16).to(torch.float64),
             torch.stack([res.num_inliers, res.pred_dev_t, res.pred_dev_r,
                          res.tracked_close, res.untracked_close]).to(torch.float64),
         ]
         if self.keep_frame_info:
-            fetch += [frame.feats.xy.reshape(-1).to(torch.float64), res.match_inlier.to(torch.float64),
+            parts += [frame.feats.xy.reshape(-1).to(torch.float64), res.match_inlier.to(torch.float64),
                       res.match_pt.to(torch.float64)]
-        got = torch.cat(fetch).cpu().numpy()
+        got = fetch(torch.cat(parts)).numpy()
         Tcw_new = got[:16].reshape(4, 4).astype(np.float32)
         num_inliers, dev_t, dev_r, n_close_trk, n_close_new = got[16:21]
         num_inliers = int(num_inliers)
-        self.stats["track_ms"].append((time.perf_counter() - t0) * 1e3)
+        TRACER.end(span)
+        self.stats["track_ms"].append(span.host_ms)
         if self.keep_frame_info:
             F, N = frame.feats.xy.shape[0], res.match_pt.shape[0]
             xy, mi, mp = np.split(got[21:], [2 * F, 2 * F + N])
@@ -381,7 +396,6 @@ class SlamSystem:
         # A solution far from the prediction is a repetitive-texture
         # mismatch, not tracking.
         tracked = bool(num_inliers >= cfg.min_track_inliers and dev_t < 0.5 and dev_r < 0.5)
-        self.stats.setdefault("inliers", []).append(num_inliers)
         self.stats.setdefault("track_ok", []).append(tracked)
         if tracked:
             self._lost_streak = 0
@@ -403,7 +417,7 @@ class SlamSystem:
                     self._insert_keyframe(frame, res)
         elif not self._recover(frame):
             if (not self.localization_only and self._lost_streak >= 2
-                    and int(self.map_state.num_kfs) <= 5):
+                    and int(fetch(self.map_state.num_kfs)) <= 5):
                 # Lost soon after initialization with nothing to recover
                 # against: the bootstrap is poisoned, so re-seed the map
                 # from this frame rather than coast.
@@ -424,15 +438,14 @@ class SlamSystem:
         was wrong), then top-k relocalization.  True when one succeeded."""
         cfg = self.cfg
         self._lost_streak += 1
-        if int(self.loop_state.db.count) == 0:
+        if int(fetch(self.loop_state.db.count)) == 0:
             return False
-        dev = self.device
         r = track_reference_keyframe(
-            self.loop_state, self.map_state.kf_Tcw, int(self.map_state.num_kfs) - 1, frame,
-            torch.from_numpy(self.Tcw).to(dev), cfg,
+            self.loop_state, self.map_state.kf_Tcw, int(fetch(self.map_state.num_kfs)) - 1, frame,
+            _upload(self.Tcw, self.device), cfg,
         )
-        if int(r.num_inliers) >= cfg.min_track_inliers:
-            Tr = r.Tcw.cpu().numpy()
+        if int(fetch(r.num_inliers)) >= cfg.min_track_inliers:
+            Tr = fetch(r.Tcw).numpy()
             self.velocity = (Tr @ np.linalg.inv(self.Tcw)).astype(np.float32)
             self.Tcw = Tr
             self._lost_streak = 0
@@ -443,9 +456,9 @@ class SlamSystem:
             return False
         gen = torch.Generator().manual_seed(900 + self.stats["frames"])
         r = relocalize(self.loop_state, self.map_state.kf_Tcw, frame, cfg, gen)
-        if not bool(r.ok):
+        if not bool(fetch(r.ok)):
             return False
-        self.Tcw = r.Tcw.cpu().numpy()
+        self.Tcw = fetch(r.Tcw).numpy()
         self.velocity = np.eye(4, dtype=np.float32)
         self._lost_streak = 0
         self.stats["relocalizations"] = self.stats.get("relocalizations", 0) + 1
@@ -456,35 +469,34 @@ class SlamSystem:
         """Grow or compact the stores at frame start (ids must stay stable
         between a frame's tracking and its keyframe insertion): a keyframe
         adds at most 1 keyframe, F points and 2F edges."""
-        m = self.map_state
-        num_kfs, num_pts, num_obs = (
-            int(v) for v in torch.stack([m.num_kfs, m.num_pts, m.num_obs]).cpu()
-        )
-        F = self.cfg.orb.num_features
-        ev = self.stats.setdefault("capacity_events", [])
-        if num_kfs + reserve_kfs > self.kmax:
-            self.kmax *= 2
-            self.map_state = m = mapmod.grow_map(m, kmax=self.kmax)
-            self.loop_state = grow_loop_state(self.loop_state, self.kmax)
-            ev.append(("grow_kfs", self.kmax))
-        if num_pts + reserve_kfs * F > self.nmax:
-            dead = num_pts - int(torch.sum(m.pt_valid))
-            if dead >= F:
-                self.map_state = m = mapmod.compact_points(m)
-                ev.append(("compact_points", dead))
-            else:
-                self.nmax *= 2
-                self.map_state = m = mapmod.grow_map(m, nmax=self.nmax)
-                ev.append(("grow_points", self.nmax))
-        if num_obs + reserve_kfs * 2 * F > self.emax:
-            dead = num_obs - int(torch.sum(m.ob_valid))
-            if dead >= 2 * F:
-                self.map_state = mapmod.compact_edges(m)
-                ev.append(("compact_edges", dead))
-            else:
-                self.emax *= 2
-                self.map_state = mapmod.grow_map(m, emax=self.emax)
-                ev.append(("grow_edges", self.emax))
+        with TRACER.span("capacity"):
+            m = self.map_state
+            num_kfs, num_pts, num_obs = (int(v) for v in fetch(torch.stack([m.num_kfs, m.num_pts, m.num_obs])))
+            F = self.cfg.orb.num_features
+            ev = self.stats.setdefault("capacity_events", [])
+            if num_kfs + reserve_kfs > self.kmax:
+                self.kmax *= 2
+                self.map_state = m = mapmod.grow_map(m, kmax=self.kmax)
+                self.loop_state = grow_loop_state(self.loop_state, self.kmax)
+                ev.append(("grow_kfs", self.kmax))
+            if num_pts + reserve_kfs * F > self.nmax:
+                dead = num_pts - int(fetch(torch.sum(m.pt_valid)))
+                if dead >= F:
+                    self.map_state = m = mapmod.compact_points(m)
+                    ev.append(("compact_points", dead))
+                else:
+                    self.nmax *= 2
+                    self.map_state = m = mapmod.grow_map(m, nmax=self.nmax)
+                    ev.append(("grow_points", self.nmax))
+            if num_obs + reserve_kfs * 2 * F > self.emax:
+                dead = num_obs - int(fetch(torch.sum(m.ob_valid)))
+                if dead >= 2 * F:
+                    self.map_state = mapmod.compact_edges(m)
+                    ev.append(("compact_edges", dead))
+                else:
+                    self.emax *= 2
+                    self.map_state = mapmod.grow_map(m, emax=self.emax)
+                    ev.append(("grow_edges", self.emax))
 
     # ------------------------------------------------------------------
     def _initialize(self, frame: FrameData):
@@ -492,54 +504,53 @@ class SlamSystem:
         point for every valid-depth feature (up to the per-keyframe cap)."""
         dev = self.device
         dummy = TrackResult(
-            Tcw=torch.from_numpy(self.Tcw).to(dev),
+            Tcw=_upload(self.Tcw, dev),
             match_pt=torch.full((self.nmax,), -1, dtype=torch.int32, device=dev),
             match_inlier=torch.zeros(self.nmax, dtype=torch.bool, device=dev),
             **{k: torch.zeros((), device=dev) for k in TrackResult._fields[3:]},
         )
-        self.map_state = keyframe_insertion(
-            self.map_state, torch.from_numpy(self.Tcw).to(dev), frame, dummy, self.cfg
-        )
+        self.map_state = keyframe_insertion(self.map_state, _upload(self.Tcw, dev), frame, dummy, self.cfg)
         self.initialized = True
-        self.inliers_at_last_kf = int(torch.sum(frame.depth > 0))
+        self.inliers_at_last_kf = int(fetch(torch.sum(frame.depth > 0)))
         self.frames_since_kf = 0
         self.stats["keyframes"] += 1
         self.stats.setdefault("kf_frames", []).append(len(self.trajectory))
         if self.enable_objects and (self._pending_detections is not None or self._pending_gray is not None):
-            self._process_objects(self._pending_detections, self._pending_depth, frame)
+            with TRACER.span("objects"):
+                self._process_objects(self._pending_detections, self._pending_depth, frame)
         self._loop_closing(frame, 0)
 
     def _insert_keyframe(self, frame: FrameData, res: TrackResult):
-        self.map_state = keyframe_insertion(
-            self.map_state, torch.from_numpy(self.Tcw).to(self.device), frame, res, self.cfg
-        )
-        t0 = time.perf_counter()
-        budget = window_edge_budget(self.ba_window, self.cfg, self.emax)
-        self.map_state = local_ba_step(self.map_state, self.cfg, self.ba_window, budget)
-        self.map_state = fuse_map_points(self.map_state)
-        if self.stats["keyframes"] % 4 == 0:
-            self.map_state = cull_keyframes(self.map_state)
-        self._sync()
-        self.stats["ba_ms"].append((time.perf_counter() - t0) * 1e3)
+        with TRACER.span("map.insert"):
+            self.map_state = keyframe_insertion(self.map_state, _upload(self.Tcw, self.device), frame, res,
+                                                self.cfg)
+        with TRACER.span("map.local_ba") as ba:
+            budget = window_edge_budget(self.ba_window, self.cfg, self.emax)
+            self.map_state = local_ba_step(self.map_state, self.cfg, self.ba_window, budget)
+            self.map_state = fuse_map_points(self.map_state)
+            if self.stats["keyframes"] % 4 == 0:
+                self.map_state = cull_keyframes(self.map_state)
+            self._sync()
+        self.stats["ba_ms"].append(ba.host_ms)
         # Adopt the refined pose of the newest keyframe.
-        kf_id = int(self.map_state.num_kfs) - 1
-        self.Tcw = self.map_state.kf_Tcw[kf_id].cpu().numpy()
+        kf_id = int(fetch(self.map_state.num_kfs)) - 1
+        self.Tcw = fetch(self.map_state.kf_Tcw[kf_id]).numpy()
         self.frames_since_kf = 0
         # Provisional reference count (measured before this keyframe's new
         # points existed); the first track after insertion refreshes it.
-        self.inliers_at_last_kf = int(res.num_inliers)
+        self.inliers_at_last_kf = int(fetch(res.num_inliers))
         self._kf_fresh = True
         self.stats["keyframes"] += 1
         self.stats.setdefault("kf_frames", []).append(len(self.trajectory))
         if self.enable_objects and (self._pending_detections is not None or self._pending_gray is not None):
-            t0 = time.perf_counter()
-            self._process_objects(self._pending_detections, self._pending_depth, frame)
-            self.stats["obj_ms"].append((time.perf_counter() - t0) * 1e3)
+            with TRACER.span("objects") as obj:
+                self._process_objects(self._pending_detections, self._pending_depth, frame)
+            self.stats["obj_ms"].append(obj.host_ms)
             # Stereo: the joint camera-point-object BA over the newest keyframes.
-            if self._sensor == "stereo" and int(torch.sum(self.objects.valid)) > 0:
+            if self._sensor == "stereo" and int(fetch(torch.sum(self.objects.valid))) > 0:
                 self.map_state, self.objects = joint_ba_step(self.map_state, self.objects, self.cfg, self.ba_window)
                 self._sync()
-                self.Tcw = self.map_state.kf_Tcw[kf_id].cpu().numpy()
+                self.Tcw = fetch(self.map_state.kf_Tcw[kf_id]).numpy()
         self._loop_closing(frame, kf_id)
 
     # ------------------------------------------------------------------
@@ -554,7 +565,7 @@ class SlamSystem:
             return
         self._mono_ref_age += 1
         init = mono_initialize(self._mono_ref, frame, self.cfg, torch.Generator().manual_seed(31))
-        if not bool(init.ok):
+        if not bool(fetch(init.ok)):
             if self._mono_ref_age > 10:
                 self._mono_ref, self._mono_ref_age = frame, 0
             return
@@ -569,9 +580,9 @@ class SlamSystem:
         no_right = torch.full((F,), -1.0, device=dev)
         m = mapmod.add_observations(m, kf0, ids, init.uv1, no_right, init.octave2)
         self.map_state = mapmod.add_observations(m, kf1, ids, init.uv2, no_right, init.octave2)
-        self.Tcw = init.T_cw2.cpu().numpy()
+        self.Tcw = fetch(init.T_cw2).numpy()
         self.initialized = True
-        self.inliers_at_last_kf = int(torch.sum(init.pt_ok))
+        self.inliers_at_last_kf = int(fetch(torch.sum(init.pt_ok)))
         self.frames_since_kf = 0
         self.stats["keyframes"] += 2
         kf_fr = self.stats.setdefault("kf_frames", [])
@@ -586,38 +597,39 @@ class SlamSystem:
         BA, the objects, and a snapshot whose 3D are the tracked map points."""
         cfg = self.cfg
         dev = self.device
-        m, kf_id = mapmod.add_keyframe(self.map_state, torch.from_numpy(self.Tcw).to(dev))
-        N = m.pt_xyz.shape[0]
-        F = frame.feats.capacity
-        pt_ids = torch.where(res.match_inlier, torch.arange(N, dtype=torch.int32, device=dev), -1)
-        fidx = torch.clamp(res.match_pt, min=0).long()
-        m = mapmod.add_observations(m, kf_id, pt_ids, frame.feats.xy[fidx], torch.full((N,), -1.0, device=dev),
-                                    frame.feats.octave[fidx])
-        prev = int(m.num_kfs) - 2
-        # Every unmatched map row marks feature 0 unmatched too, as in the
-        # reference (ROADMAP queue C).
-        matched_feat = scatter_set_last(torch.zeros(F, dtype=torch.bool, device=dev), fidx, res.match_inlier)
-        ls = self.loop_state
-        self.map_state = triangulate_new_points(m, ls.kf_desc[prev], ls.kf_xy[prev], ls.kf_feat_ok[prev], prev,
-                                                kf_id, frame, matched_feat, cfg)
-        t0 = time.perf_counter()
-        budget = window_edge_budget(self.ba_window, cfg, self.emax)
-        self.map_state = local_ba_step(self.map_state, cfg, self.ba_window, budget)
-        self._sync()
-        self.stats["ba_ms"].append((time.perf_counter() - t0) * 1e3)
-        kf = int(self.map_state.num_kfs) - 1
-        self.Tcw = self.map_state.kf_Tcw[kf].cpu().numpy()
+        with TRACER.span("map.insert"):
+            m, kf_id = mapmod.add_keyframe(self.map_state, _upload(self.Tcw, dev))
+            N = m.pt_xyz.shape[0]
+            F = frame.feats.capacity
+            pt_ids = torch.where(res.match_inlier, torch.arange(N, dtype=torch.int32, device=dev), -1)
+            fidx = torch.clamp(res.match_pt, min=0).long()
+            m = mapmod.add_observations(m, kf_id, pt_ids, frame.feats.xy[fidx], torch.full((N,), -1.0, device=dev),
+                                        frame.feats.octave[fidx])
+            prev = int(fetch(m.num_kfs)) - 2
+            # Every unmatched map row marks feature 0 unmatched too, as in the
+            # reference (ROADMAP queue C).
+            matched_feat = scatter_set_last(torch.zeros(F, dtype=torch.bool, device=dev), fidx, res.match_inlier)
+            ls = self.loop_state
+            self.map_state = triangulate_new_points(m, ls.kf_desc[prev], ls.kf_xy[prev], ls.kf_feat_ok[prev], prev,
+                                                    kf_id, frame, matched_feat, cfg)
+        with TRACER.span("map.local_ba") as ba:
+            budget = window_edge_budget(self.ba_window, cfg, self.emax)
+            self.map_state = local_ba_step(self.map_state, cfg, self.ba_window, budget)
+            self._sync()
+        self.stats["ba_ms"].append(ba.host_ms)
+        kf = int(fetch(self.map_state.num_kfs)) - 1
+        self.Tcw = fetch(self.map_state.kf_Tcw[kf]).numpy()
         self.frames_since_kf = 0
-        self.inliers_at_last_kf = int(res.num_inliers)  # provisional, as in _insert_keyframe
+        self.inliers_at_last_kf = int(fetch(res.num_inliers))  # provisional, as in _insert_keyframe
         self._kf_fresh = True
         self.stats["keyframes"] += 1
         self.stats.setdefault("kf_frames", []).append(len(self.trajectory))
         if self.enable_objects and self._pending_detections is not None:
-            t0 = time.perf_counter()
-            self._process_objects_mono(self._pending_detections)
-            self.stats["obj_ms"].append((time.perf_counter() - t0) * 1e3)
+            with TRACER.span("objects") as obj:
+                self._process_objects_mono(self._pending_detections)
+            self.stats["obj_ms"].append(obj.host_ms)
         pts_cam, pts_ok = feature_points_from_matches(self.map_state.pt_xyz, res.match_pt, res.match_inlier,
-                                                      torch.from_numpy(self.Tcw).to(dev), F)
+                                                      _upload(self.Tcw, dev), F)
         self._loop_closing(frame, kf, pts_cam=pts_cam, pts_ok=pts_ok)
 
     def _process_objects_mono(self, detections):
@@ -631,21 +643,22 @@ class SlamSystem:
             detections = detections()
         cfg, dev = self.cfg, self.device
         m = self.map_state
-        kf_id = int(m.num_kfs) - 1
+        kf_id = int(fetch(m.num_kfs)) - 1
         gp = estimate_ground_plane_points(
             m.pt_xyz, m.pt_valid, torch.Generator().manual_seed(400 + kf_id), min_inlier_frac=0.04,
             inlier_th=adaptive_inlier_th(m.pt_xyz, m.pt_valid),
         )
-        ok, n_inl = (int(v) for v in torch.stack([gp.ok.to(torch.int64), gp.num_inliers.to(torch.int64)]).cpu())
+        ok, n_inl = (int(v) for v in fetch(torch.stack([gp.ok.to(torch.int64), gp.num_inliers.to(torch.int64)])))
         if ok and n_inl > self._gp_inliers:
-            self.ground_plane = gp.plane.cpu().numpy()  # world frame already
+            self.ground_plane = fetch(gp.plane).numpy()  # world frame already
             self._gp_inliers = n_inl
         if self.ground_plane is None:
             return
-        Tcw = torch.from_numpy(self.Tcw).to(dev)
+        Tcw = _upload(self.Tcw, dev)
         K = intrinsic_matrix(cfg.intr, dev)
-        pi_w = torch.from_numpy(self.ground_plane).to(dev)
+        pi_w = _upload(self.ground_plane, dev)
         pi_cam = plane_mod.transform(pi_w, Tcw)
+        count(HOST_READS, 4)
         bbox, label, prob, dvalid = (torch.as_tensor(np.asarray(detections[k]), dtype=dt).to(dev) for k, dt in (
             ("bbox", torch.float32), ("label", torch.int32), ("prob", torch.float32), ("valid", torch.bool)))
         priors = self.aspect_priors or default_priors(device=dev)
@@ -680,67 +693,72 @@ class SlamSystem:
             detections = detect_objects(*self.detector, self._pending_gray)
             self._pending_gray = None
         cfg, dev = self.cfg, self.device
-        Tcw = torch.from_numpy(self.Tcw).to(dev)
+        Tcw = _upload(self.Tcw, dev)
         sparse = self._sensor == "stereo"
-        kf_id = int(self.map_state.num_kfs) - 1
+        kf_id = int(fetch(self.map_state.num_kfs)) - 1
         if sparse:
             kp_pts = backproject(frame.feats.xy, frame.depth, cfg.intr)
             kp_ok = frame.depth > 0.0
-        if self.ground_plane is None or self._gp_count < 10:
-            # One keyframe's RANSAC is a noisy estimate: the first keyframes
-            # re-estimate and fuse consistent fits (15 deg, 0.4 m) by a
-            # count-weighted mean.
-            gen = torch.Generator().manual_seed(kf_id)
-            gp = (estimate_ground_plane_points(kp_pts, kp_ok, gen) if sparse
-                  else estimate_ground_plane(depth, cfg.intr, gen))
-            got = torch.cat([plane_mod.transform(gp.plane, lie.inv_se3(Tcw)), gp.ok.to(torch.float32)[None]]).cpu()
-            if bool(got[4]):
-                pi_w_new = got[:4].numpy()
-                pi_w_new = pi_w_new / np.linalg.norm(pi_w_new[:3])
-                if self.ground_plane is None:
-                    self.ground_plane, self._gp_count = pi_w_new, 1
-                elif (float(np.dot(self.ground_plane[:3], pi_w_new[:3])) > 0.966
-                      and abs(float(self.ground_plane[3] - pi_w_new[3])) < 0.4):
-                    k = self._gp_count
-                    fused = (k * self.ground_plane + pi_w_new) / (k + 1)
-                    self.ground_plane, self._gp_count = fused / np.linalg.norm(fused[:3]), k + 1
-            elif self.ground_plane is None:
-                return  # objects wait for a gravity reference
-        pi_w = torch.from_numpy(self.ground_plane).to(dev)
-        pi_cam = plane_mod.transform(pi_w, Tcw)
-        if self.enable_structures and not sparse:
-            self._update_structures(depth, pi_cam, Tcw, kf_id)
-        bbox, label, prob, dvalid = (_det_tensor(detections[k], dt, dev) for k, dt in (
-            ("bbox", torch.float32), ("label", torch.int32), ("prob", torch.float32), ("valid", torch.bool)))
-        gen = torch.Generator().manual_seed(1000 + kf_id)
-        if "ellipsoid_cam" in detections:  # measured ellipsoids (a 3D detector's boxes)
-            fit_e = _det_tensor(detections["ellipsoid_cam"], torch.float32, dev)
-            fit_ok = _det_tensor(detections["fit_ok"], torch.bool, dev)
-        else:
-            if sparse:
-                xy = frame.feats.xy[None]
-                in_box = ((xy[..., 0] >= bbox[:, 0:1]) & (xy[..., 0] <= bbox[:, 2:3])
-                          & (xy[..., 1] >= bbox[:, 1:2]) & (xy[..., 1] <= bbox[:, 3:4]))
-                fits = fit_ellipsoid_points(kp_pts.expand(bbox.shape[0], -1, 3), kp_ok & in_box, bbox, pi_cam,
-                                            cfg.intr, min_points=8)
-            elif self.enable_structures or self.enable_symmetry:
-                fits = self._fit_detections_structured(depth, bbox, gen, pi_cam, Tcw)
+        with TRACER.span("objects.planes"):
+            if self.ground_plane is None or self._gp_count < 10:
+                # One keyframe's RANSAC is a noisy estimate: the first keyframes
+                # re-estimate and fuse consistent fits (15 deg, 0.4 m) by a
+                # count-weighted mean.
+                gen = torch.Generator().manual_seed(kf_id)
+                gp = (estimate_ground_plane_points(kp_pts, kp_ok, gen) if sparse
+                      else estimate_ground_plane(depth, cfg.intr, gen))
+                got = fetch(torch.cat([plane_mod.transform(gp.plane, lie.inv_se3(Tcw)),
+                                       gp.ok.to(torch.float32)[None]]))
+                if bool(got[4]):
+                    pi_w_new = got[:4].numpy()
+                    pi_w_new = pi_w_new / np.linalg.norm(pi_w_new[:3])
+                    if self.ground_plane is None:
+                        self.ground_plane, self._gp_count = pi_w_new, 1
+                    elif (float(np.dot(self.ground_plane[:3], pi_w_new[:3])) > 0.966
+                          and abs(float(self.ground_plane[3] - pi_w_new[3])) < 0.4):
+                        k = self._gp_count
+                        fused = (k * self.ground_plane + pi_w_new) / (k + 1)
+                        self.ground_plane, self._gp_count = fused / np.linalg.norm(fused[:3]), k + 1
+                elif self.ground_plane is None:
+                    return  # objects wait for a gravity reference
+            pi_w = _upload(self.ground_plane, dev)
+            pi_cam = plane_mod.transform(pi_w, Tcw)
+            if self.enable_structures and not sparse:
+                self._update_structures(depth, pi_cam, Tcw, kf_id)
+        with TRACER.span("objects.fit"):
+            bbox, label, prob, dvalid = (_det_tensor(detections[k], dt, dev) for k, dt in (
+                ("bbox", torch.float32), ("label", torch.int32), ("prob", torch.float32), ("valid", torch.bool)))
+            gen = torch.Generator().manual_seed(1000 + kf_id)
+            if "ellipsoid_cam" in detections:  # measured ellipsoids (a 3D detector's boxes)
+                fit_e = _det_tensor(detections["ellipsoid_cam"], torch.float32, dev)
+                fit_ok = _det_tensor(detections["fit_ok"], torch.bool, dev)
             else:
-                fits = fit_ellipsoid_depth(depth, bbox, pi_cam, cfg.intr, gen)
-            fit_e, fit_ok = fits.ellipsoid_cam, fits.ok
-        K = intrinsic_matrix(cfg.intr, dev)
-        objs = advance_dynamic_objects(self.objects, kf_id)
-        assoc = associate_detections(objs, Tcw, K, bbox, label, dvalid)
-        objs = integrate_keyframe(objs, Tcw, bbox, label, prob, dvalid, fit_e, fit_ok & dvalid, assoc, kf_id=kf_id)
-        support_w = None
-        if self.enable_structures:
-            # One vote suffices: SUPPORT already needs bottom contact.
-            pvalid = self.plane_set.valid & (self.plane_set.votes >= 1)
-            self.relations = extract_relations(objs.ellipsoid, objs.valid, self.plane_set.planes, pvalid,
-                                               pi_w[:3] / torch.linalg.vector_norm(pi_w[:3]))
-            support_w = support_planes_for_objects(self.relations, self.plane_set.planes, pvalid, pi_w)
-        objs = refine_objects(objs, K, pi_w, support_planes_w=support_w, img_wh=(cfg.width, cfg.height))
-        self.objects = cull_objects(merge_duplicates(objs), kf_id)
+                if sparse:
+                    xy = frame.feats.xy[None]
+                    in_box = ((xy[..., 0] >= bbox[:, 0:1]) & (xy[..., 0] <= bbox[:, 2:3])
+                              & (xy[..., 1] >= bbox[:, 1:2]) & (xy[..., 1] <= bbox[:, 3:4]))
+                    fits = fit_ellipsoid_points(kp_pts.expand(bbox.shape[0], -1, 3), kp_ok & in_box, bbox, pi_cam,
+                                                cfg.intr, min_points=8)
+                elif self.enable_structures or self.enable_symmetry:
+                    fits = self._fit_detections_structured(depth, bbox, gen, pi_cam, Tcw)
+                else:
+                    fits = fit_ellipsoid_depth(depth, bbox, pi_cam, cfg.intr, gen)
+                fit_e, fit_ok = fits.ellipsoid_cam, fits.ok
+        with TRACER.span("objects.refine"):
+            K = intrinsic_matrix(cfg.intr, dev)
+            objs = advance_dynamic_objects(self.objects, kf_id)
+            assoc = associate_detections(objs, Tcw, K, bbox, label, dvalid)
+            objs = integrate_keyframe(objs, Tcw, bbox, label, prob, dvalid, fit_e, fit_ok & dvalid, assoc,
+                                      kf_id=kf_id)
+            support_w = None
+            if self.enable_structures:
+                # One vote suffices: SUPPORT already needs bottom contact.
+                pvalid = self.plane_set.valid & (self.plane_set.votes >= 1)
+                self.relations = extract_relations(objs.ellipsoid, objs.valid, self.plane_set.planes, pvalid,
+                                                   pi_w[:3] / torch.linalg.vector_norm(pi_w[:3]))
+                support_w = support_planes_for_objects(self.relations, self.plane_set.planes, pvalid, pi_w)
+            objs = refine_objects(objs, K, pi_w, support_planes_w=support_w, img_wh=(cfg.width, cfg.height))
+            self.objects = cull_objects(merge_duplicates(objs), kf_id)
         if self.shape_prior is not None:
             self._reconstruct_shapes(detections, depth, frame, pi_cam, Tcw, assoc.obj_for_det, kf_id)
         self._sync()
@@ -755,12 +773,15 @@ class SlamSystem:
         opt_cfg = self.shape_prior[2] if len(self.shape_prior) > 2 else ShapeOptConfig()
         if depth is None:  # stereo keeps depth per keypoint
             depth = keypoint_depth_image(frame.feats.xy, frame.depth, cfg.height, cfg.width)
-        masks = {}
-        if "mask" in detections:
-            masks = dict(det_masks=_det_tensor(detections["mask"], torch.bool, self.device), det_assoc=obj_for_det)
-        inputs = gather_shape_inputs(self.objects, Tcw, depth, pi_cam, cfg.intr,
-                                     torch.Generator().manual_seed(5000 + kf_id), **masks)
-        self.objects = reconstruct_due_objects(self.objects, inputs, params, dec_cfg, Tcw, opt_cfg)
+        with TRACER.span("shapes"):
+            with TRACER.span("shapes.gather"):
+                masks = {}
+                if "mask" in detections:
+                    masks = dict(det_masks=_det_tensor(detections["mask"], torch.bool, self.device),
+                                 det_assoc=obj_for_det)
+                inputs = gather_shape_inputs(self.objects, Tcw, depth, pi_cam, cfg.intr,
+                                             torch.Generator().manual_seed(5000 + kf_id), **masks)
+            self.objects = reconstruct_due_objects(self.objects, inputs, params, dec_cfg, Tcw, opt_cfg)
 
     def _update_structures(self, depth, pi_cam, Tcw, kf_id: int):
         """Manhattan planes of this keyframe's depth (a stride-8 cloud, four
@@ -806,56 +827,58 @@ class SlamSystem:
         monocular sensor corrects scale too.  `pts_cam`/`pts_ok` replace
         the depth back-projection (a monocular keyframe passes its tracked
         map points)."""
-        cfg = self.cfg
-        if pts_cam is None:
-            pts_cam = backproject(frame.feats.xy, frame.depth, cfg.intr)
-            pts_ok = frame.depth > 0.0
-        self.loop_state = snapshot_keyframe(
-            self.loop_state, frame.feats.desc_pm, frame.feats.valid,
-            pts_cam, pts_ok, frame.feats.xy, frame.feats.octave,
-        )
-        if not self.enable_loop_closing or kf_id < 12:
-            return
-        cands, scores, ref_min = query_topk_with_ref(
-            self.loop_state.db, bow_signature(frame.feats.desc_pm, frame.feats.valid), k=8
-        )
-        got = torch.cat([cands.to(torch.float64), scores.to(torch.float64), ref_min.reshape(1).to(torch.float64)])
-        got = got.cpu().numpy()
-        k = cands.shape[0]
-        cands_np, scores_np, ref_min = got[:k].astype(np.int64), got[k:2 * k].astype(np.float32), float(got[-1])
-        score_min = max(ref_min, 0.02)
-        chosen = self._loop_gate.update(np.where(scores_np > score_min, cands_np, -1), scores_np)
-        scan_row = [int(kf_id), tuple(int(c) for c in cands_np), float(scores_np[0]), ref_min, int(chosen), -1]
-        self.stats.setdefault("loop_scan", []).append(scan_row)
-        if chosen < 0:
-            return
-        fix_scale = self._sensor != "mono"
-        gen = torch.Generator().manual_seed(77 + kf_id)
-        det = verify_loop(
-            self.loop_state, chosen, frame.feats.desc_pm, frame.feats.valid, pts_cam, pts_ok, gen,
-            intr=cfg.intr, xy=frame.feats.xy, octave=frame.feats.octave, fix_scale=fix_scale,
-            scale_factor=cfg.orb.pyramid.scale_factor, min_inliers=40,
-        )
-        found, n_inl = (int(v) for v in torch.stack([det.found.to(torch.int64), det.num_inliers.to(torch.int64)]).cpu())
-        scan_row[5] = n_inl
-        if not found:
-            return
-        ev = (int(kf_id), int(chosen), n_inl)
-        self.stats.setdefault("loop_events", []).append(ev)
-        print(f"[loop] kf={ev[0]} match={ev[1]} inliers={ev[2]}", file=sys.stderr)
-        self._loop_gate.reset()
-        self.map_state, self.objects = correct_loop(self.map_state, self.objects, kf_id, det,
-                                                    fix_scale=fix_scale)
-        self._loop_kf = kf_id
-        if not self._multi_device():  # on a mesh, at the frame's end
-            self._global_ba_after_loop()
+        with TRACER.span("loop"):
+            cfg = self.cfg
+            if pts_cam is None:
+                pts_cam = backproject(frame.feats.xy, frame.depth, cfg.intr)
+                pts_ok = frame.depth > 0.0
+            self.loop_state = snapshot_keyframe(
+                self.loop_state, frame.feats.desc_pm, frame.feats.valid,
+                pts_cam, pts_ok, frame.feats.xy, frame.feats.octave,
+            )
+            if not self.enable_loop_closing or kf_id < 12:
+                return
+            cands, scores, ref_min = query_topk_with_ref(
+                self.loop_state.db, bow_signature(frame.feats.desc_pm, frame.feats.valid), k=8
+            )
+            got = fetch(torch.cat([cands.to(torch.float64), scores.to(torch.float64),
+                                   ref_min.reshape(1).to(torch.float64)])).numpy()
+            k = cands.shape[0]
+            cands_np, scores_np, ref_min = got[:k].astype(np.int64), got[k:2 * k].astype(np.float32), float(got[-1])
+            score_min = max(ref_min, 0.02)
+            chosen = self._loop_gate.update(np.where(scores_np > score_min, cands_np, -1), scores_np)
+            scan_row = [int(kf_id), tuple(int(c) for c in cands_np), float(scores_np[0]), ref_min, int(chosen), -1]
+            self.stats.setdefault("loop_scan", []).append(scan_row)
+            if chosen < 0:
+                return
+            fix_scale = self._sensor != "mono"
+            gen = torch.Generator().manual_seed(77 + kf_id)
+            det = verify_loop(
+                self.loop_state, chosen, frame.feats.desc_pm, frame.feats.valid, pts_cam, pts_ok, gen,
+                intr=cfg.intr, xy=frame.feats.xy, octave=frame.feats.octave, fix_scale=fix_scale,
+                scale_factor=cfg.orb.pyramid.scale_factor, min_inliers=40,
+            )
+            found, n_inl = (int(v) for v in fetch(torch.stack([det.found.to(torch.int64),
+                                                                det.num_inliers.to(torch.int64)])))
+            scan_row[5] = n_inl
+            if not found:
+                return
+            ev = (int(kf_id), int(chosen), n_inl)
+            self.stats.setdefault("loop_events", []).append(ev)
+            print(f"[loop] kf={ev[0]} match={ev[1]} inliers={ev[2]}", file=sys.stderr)
+            self._loop_gate.reset()
+            self.map_state, self.objects = correct_loop(self.map_state, self.objects, kf_id, det,
+                                                        fix_scale=fix_scale)
+            self._loop_kf = kf_id
+            if not self._multi_device():  # on a mesh, at the frame's end
+                self._global_ba_after_loop()
 
     def _global_ba_after_loop(self) -> None:
         """The corrected map's global BA; the loop keyframe's pose is then
         the current one."""
         kf_id, self._loop_kf = self._loop_kf, -1
         self._dispatch_global_ba()
-        self.Tcw = self.map_state.kf_Tcw[kf_id].cpu().numpy()
+        self.Tcw = fetch(self.map_state.kf_Tcw[kf_id]).numpy()
         self.velocity = np.eye(4, dtype=np.float32)
         self.loops_closed += 1
 
@@ -873,7 +896,7 @@ class SlamSystem:
         if not self._multi_device():
             return
         flag = torch.tensor([self._loop_kf], dtype=torch.int64, device=self.device)
-        if int(broadcast(self.mesh, (flag,))[0]) < 0:
+        if int(fetch(broadcast(self.mesh, (flag,))[0])) < 0:
             self._loop_kf = -1
             return
         self._adopt_rank0()
@@ -896,7 +919,7 @@ class SlamSystem:
         (`joint_ba_step` over every keyframe slot, or `global_ba_step`).
         `stats["global_ba"]` records each call's branch."""
         joint = (self._sensor == "stereo" and self.enable_objects
-                 and int(torch.sum(self.objects.pm_kf >= 0)) >= 2)
+                 and int(fetch(torch.sum(self.objects.pm_kf >= 0))) >= 2)
         sharded = self._multi_device()
         if joint and sharded:
             self.map_state, self.objects = global_joint_ba_sharded(self.map_state, self.objects, self.cfg,
@@ -920,10 +943,10 @@ class SlamSystem:
         every rank calls and which starts from rank 0's state."""
         if self._multi_device():
             self._adopt_rank0()
-        if int(self.map_state.num_kfs) < 2:
+        if int(fetch(self.map_state.num_kfs)) < 2:
             return
         self._dispatch_global_ba(iters)
-        self.Tcw = self.map_state.kf_Tcw[int(self.map_state.num_kfs) - 1].cpu().numpy()
+        self.Tcw = fetch(self.map_state.kf_Tcw[int(fetch(self.map_state.num_kfs)) - 1]).numpy()
         self.velocity = np.eye(4, dtype=np.float32)
 
     # ------------------------------------------------------------------

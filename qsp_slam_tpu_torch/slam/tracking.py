@@ -20,6 +20,7 @@ from ..frontend.orb import Features, OrbConfig, extract_features, extract_featur
 from ..frontend.stereo import depth_from_u_right, match_stereo
 from ..opt.pose_opt import PoseOptResult, optimize_pose
 from ..opt.reproj import ReprojEdges
+from ..utils.tracing import TRACER
 from . import map as mapmod
 from .map import MapState, scatter_set_last
 
@@ -91,18 +92,19 @@ def decode_inputs(gray: torch.Tensor, depth_img: torch.Tensor, cfg: TrackingConf
 
 def process_frame(gray: torch.Tensor, depth_img: torch.Tensor, cfg: TrackingConfig) -> FrameData:
     """ORB features plus per-keypoint depth (the RGB-D frame constructor)."""
-    gray, depth_img = decode_inputs(gray, depth_img, cfg)
-    feats = extract_features(gray, cfg.orb)
-    # Depth is sampled at the raw (distorted) pixel.
-    xi = torch.clamp(torch.round(feats.xy[:, 0]).long(), 0, cfg.width - 1)
-    yi = torch.clamp(torch.round(feats.xy[:, 1]).long(), 0, cfg.height - 1)
-    d = depth_img[yi, xi]
-    ok = (d > cfg.depth_min) & (d < cfg.depth_max) & feats.valid
-    d = torch.where(ok, d, 0.0)
-    if any(c != 0.0 for c in cfg.dist_coef):
-        feats = feats._replace(xy=undistort_points(feats.xy, cfg.intr, cfg.dist_coef))
-    u_right = torch.where(ok, feats.xy[:, 0] - cfg.bf / torch.where(ok, d, 1.0), -1.0)
-    return FrameData(feats=feats, depth=d, u_right=u_right)
+    with TRACER.span("track.features"):
+        gray, depth_img = decode_inputs(gray, depth_img, cfg)
+        feats = extract_features(gray, cfg.orb)
+        # Depth is sampled at the raw (distorted) pixel.
+        xi = torch.clamp(torch.round(feats.xy[:, 0]).long(), 0, cfg.width - 1)
+        yi = torch.clamp(torch.round(feats.xy[:, 1]).long(), 0, cfg.height - 1)
+        d = depth_img[yi, xi]
+        ok = (d > cfg.depth_min) & (d < cfg.depth_max) & feats.valid
+        d = torch.where(ok, d, 0.0)
+        if any(c != 0.0 for c in cfg.dist_coef):
+            feats = feats._replace(xy=undistort_points(feats.xy, cfg.intr, cfg.dist_coef))
+        u_right = torch.where(ok, feats.xy[:, 0] - cfg.bf / torch.where(ok, d, 1.0), -1.0)
+        return FrameData(feats=feats, depth=d, u_right=u_right)
 
 
 def _octave_radius(cfg: TrackingConfig, octave: torch.Tensor) -> torch.Tensor:
@@ -110,9 +112,11 @@ def _octave_radius(cfg: TrackingConfig, octave: torch.Tensor) -> torch.Tensor:
 
 
 def track_frame(m: MapState, Tcw_pred: torch.Tensor, frame: FrameData, cfg: TrackingConfig) -> TrackResult:
-    """Projection search against the map + motion-only pose optimization."""
+    """Projection search against the map + motion-only pose optimization.
+    The `track.search` span runs from here to the pose solve."""
     Nmax = m.pt_xyz.shape[0]
     B = cfg.local_map_budget
+    search = TRACER.begin("track.search")
     if B and B < Nmax:
         # Local-map view: frustum-visible points first, then points seen by
         # the 12 most recent keyframes; ties keep id order (stable sort).
@@ -130,16 +134,18 @@ def track_frame(m: MapState, Tcw_pred: torch.Tensor, frame: FrameData, cfg: Trac
             pt_normal=m.pt_normal[take],
             pt_valid=m.pt_valid[take] & (prio[take] > 0.0),
         )
-        r = _track_against(sub, Tcw_pred, frame, cfg)
+        r = _track_against(sub, Tcw_pred, frame, cfg, search)
         match_pt = torch.full((Nmax,), -1, dtype=torch.int32, device=m.device)
         match_inlier = torch.zeros(Nmax, dtype=torch.bool, device=m.device)
         match_pt[take] = r.match_pt
         match_inlier[take] = r.match_inlier
         return r._replace(match_pt=match_pt, match_inlier=match_inlier)
-    return _track_against(m, Tcw_pred, frame, cfg)
+    return _track_against(m, Tcw_pred, frame, cfg, search)
 
 
-def _track_against(m: MapState, Tcw_pred: torch.Tensor, frame: FrameData, cfg: TrackingConfig) -> TrackResult:
+def _track_against(m: MapState, Tcw_pred: torch.Tensor, frame: FrameData, cfg: TrackingConfig,
+                   search) -> TrackResult:
+    """The search and the pose solve; ends the caller's `search` span."""
     intr = cfg.intr
     feats = frame.feats
     # 1. Project all map points with the predicted pose; viewing-angle gate
@@ -193,7 +199,9 @@ def _track_against(m: MapState, Tcw_pred: torch.Tensor, frame: FrameData, cfg: T
         inv_sigma2=inv_sigma2,
         valid=match.valid,
     )
-    res: PoseOptResult = optimize_pose(Tcw_pred, m.pt_xyz, edges, intr, baseline_fx=cfg.bf)
+    TRACER.end(search)
+    with TRACER.span("track.pose"):
+        res: PoseOptResult = optimize_pose(Tcw_pred, m.pt_xyz, edges, intr, baseline_fx=cfg.bf)
     dev = lie.log_se3(res.Tcw @ lie.inv_se3(Tcw_pred))
     # Close-point census: matches are unique per feature after
     # resolve_duplicates, so inlier rows with a close feature count the
@@ -223,14 +231,15 @@ def process_frame_stereo(gray_left: torch.Tensor, gray_right: torch.Tensor, cfg:
     """The stereo frame constructor: both images' features (one K1 launch
     for the pair), scanline matching with subpixel refinement, and depth
     per keypoint."""
-    gl = gray_left.to(torch.float32)
-    gr = gray_right.to(torch.float32)
-    fl, fr = extract_features_pair(gl, gr, cfg.orb)
-    u_r = match_stereo(fl, fr, cfg.bf, min_depth=cfg.depth_min, max_depth=cfg.depth_max,
-                       gray_left=gl, gray_right=gr)
-    d = depth_from_u_right(fl.xy[:, 0], u_r, cfg.bf)
-    ok = (d > cfg.depth_min) & (d < cfg.depth_max) & fl.valid
-    return FrameData(feats=fl, depth=torch.where(ok, d, 0.0), u_right=torch.where(ok, u_r, -1.0))
+    with TRACER.span("track.features"):
+        gl = gray_left.to(torch.float32)
+        gr = gray_right.to(torch.float32)
+        fl, fr = extract_features_pair(gl, gr, cfg.orb)
+        u_r = match_stereo(fl, fr, cfg.bf, min_depth=cfg.depth_min, max_depth=cfg.depth_max,
+                           gray_left=gl, gray_right=gr)
+        d = depth_from_u_right(fl.xy[:, 0], u_r, cfg.bf)
+        ok = (d > cfg.depth_min) & (d < cfg.depth_max) & fl.valid
+        return FrameData(feats=fl, depth=torch.where(ok, d, 0.0), u_right=torch.where(ok, u_r, -1.0))
 
 
 def process_and_track_stereo(gray_left, gray_right, m: MapState, Tcw_pred: torch.Tensor, cfg: TrackingConfig):
