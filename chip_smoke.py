@@ -271,8 +271,8 @@ from qsp_slam_tpu_torch.models.deepsdf import (  # noqa: E402
     DeepSDFConfig,
     DeepSDFDecoder,
     decode_sdf,
+    _layer_dims,
     ellipsoid_sdf,
-    macs_per_point,
     train_toy_decoder,
 )
 from qsp_slam_tpu_torch.models.mesh import extract_mesh_from_code  # noqa: E402
@@ -295,14 +295,14 @@ from qsp_slam_tpu_torch.slam import system as system_mod  # noqa: E402
 from qsp_slam_tpu_torch.slam.system import SlamSystem  # noqa: E402
 from qsp_slam_tpu_torch.slam.tracking import TrackingConfig, process_frame  # noqa: E402
 from qsp_slam_tpu_torch.slam.shape_mapping import (  # noqa: E402
-    RENDER_SAMPLES,
     ShapeInputs,
     chunk_size,
-    hypothesis_bytes,
+    reverse_hypothesis_bytes,
 )
 from qsp_slam_tpu_torch.utils.tracing import Tracer, device_trace  # noqa: E402
 from qsp_slam_tpu_torch.viz import frame_draw, object_render  # noqa: E402
 from qsp_slam_tpu_torch.viz.object_render import render_objects_png  # noqa: E402
+from port_bench.metrics.flop import shape_step_flop  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM peak outside the tensor cores
@@ -1338,16 +1338,15 @@ class ShapeSteps:
 
 
 def shape_flop(st: dict) -> float:
-    """FLOP of one shape step's LM, counted from its shapes: per hypothesis
-    the starting cost and, per trip, the primal, the 7 + C tangents and the
-    trial cost, each one decoder pass over the P surface points and the
-    R x 32 render samples."""
+    """The decoder FLOP that one shape step's LM needs, as the benchmark
+    counts it (`port_bench/metrics/flop.py`: 1 + 4 x iters passes per
+    hypothesis over its valid surface points and render samples)."""
     if not st["due"]:
         return 0.0
     _, inputs, _, dec_cfg, _, opt_cfg = st["args"]
-    points = inputs.pts_cam.shape[1] + inputs.rays.shape[1] * RENDER_SAMPLES
-    passes = opt_cfg.iters * (7 + dec_cfg.code_dim + 2) + 1
-    return float(st["hyps"] * passes * points * 2 * macs_per_point(dec_cfg))
+    F, due = max(1, opt_cfg.num_flips), inputs.due.cpu()
+    valid = [tuple(ok.cpu()[due].sum(-1).repeat_interleave(F) for ok in (inputs.pts_ok, inputs.rays_ok))]
+    return shape_step_flop(_layer_dims(dec_cfg), opt_cfg.iters, valid)
 
 
 def shape_frames(n: int) -> tuple:
@@ -1490,7 +1489,7 @@ def shape_path(tmp: str, prof: Path | None, dump: str | None = None) -> dict:
              for st in ss.steps]
     # The LM's largest chunk of hypotheses and the chunking's estimate for it.
     n_pts, n_rays = ss.steps[0]["inputs"].pts_cam.shape[1], ss.steps[0]["inputs"].rays.shape[1]
-    per_hyp = hypothesis_bytes(dec, n_pts, n_rays)
+    per_hyp = reverse_hypothesis_bytes(dec, n_pts, n_rays)
     chunk = chunk_size(dec, n_pts, n_rays, torch.device("cuda"))
     busy = [st for st in steps if st["due"]]
     busy_steps = [st for st in ss.steps if st["due"]]

@@ -3,14 +3,18 @@ and the pose-only fit against a fixed shape (counterpart of
 `qsp_slam_tpu/models/shape_opt.py`).
 
 Each LM trip builds the Jacobian of the SDF and render residuals with
-respect to theta = (sim(3) increment xi, code) as `jvp`s under `vmap`
-over the 7 + C tangent basis (forward mode: far fewer parameters than
-residuals), then solves the damped normal equations with the tilt,
-scale and code priors on the diagonal.  Everything is batched over a
-leading hypothesis axis; the reference's `lax.scan` becomes a Python loop
-whose accepts are `torch.where` selections, and a singular system gives a
-NaN step that the accept test rejects (`solve_or_nan`), so a trip never
-reads the device.
+respect to theta = (sim(3) increment xi, code), then solves the damped
+normal equations with the tilt, scale and code priors on the diagonal.
+Two paths build the same (r, J) and share no logic, chosen by the device
+of the inputs: on the CPU `forward_jacobian`, `jvp`s under `vmap` over the
+7 + C tangent basis, whose rounding follows the reference's `jacfwd` (the
+parity tests hold later trips to it, and the LM's ReLU pattern makes them
+chaotic); on CUDA `reverse_jacobian`, one decoder pass and one input-only
+backward pass, about 3 decoder passes where the basis takes 7 + C + 1.
+Everything is batched over a leading hypothesis axis; the reference's
+`lax.scan` becomes a Python loop whose accepts are `torch.where`
+selections, and a singular system gives a NaN step that the accept test
+rejects (`solve_or_nan`), so a trip never reads the device.
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ from ..core import lie
 from ..opt.pose_opt import solve_or_nan
 from ..utils.tracing import HOST_READS, TRACER, count
 from . import losses
-from .deepsdf import DeepSDFConfig, weights
+from .deepsdf import DeepSDFConfig, decode_sdf, weights
+
+REVERSE_JACOBIANS = "shape_reverse_jacobians"  # TRACER counter: one per `reverse_jacobian` call
 
 
 class ShapeOptConfig(NamedTuple):
@@ -72,12 +78,64 @@ def reconstruct_object(params, dec_cfg: DeepSDFConfig, T_oc_init, code_init, pts
                     pts_valid, rays_cam, depth_obs, rays_valid)
 
 
+def forward_jacobian(params, dec_cfg, wb, code, T_base, pts_cam, pts_valid, rays_cam, depth_obs, rays_valid):
+    """(r (B, M), J (B, M, 7 + C)) of the joint residuals at theta =
+    (xi = 0, code): `jvp`s under `vmap` over the 7 + C tangent basis, a
+    decoder pass per column (forward mode: far fewer parameters than
+    residuals)."""
+    B, C = code.shape
+    D = 7 + C
+    theta = torch.cat([torch.zeros((B, 7), dtype=code.dtype, device=code.device), code], dim=-1)
+
+    def residuals(t):
+        return torch.cat(losses.joint_residuals(params, dec_cfg, t[:, :7], t[:, 7:], T_base, pts_cam, pts_valid,
+                                                rays_cam, depth_obs, rays_valid, wb), dim=-1)
+
+    eye = torch.eye(D, dtype=code.dtype, device=code.device)
+    r, J = vmap(lambda v: jvp(residuals, (theta,), (v.expand(B, D),)))(eye)
+    return r[0], J.permute(1, 2, 0)
+
+
+def reverse_jacobian(params, dec_cfg, wb, code, T_base, pts_cam, pts_valid, rays_cam, depth_obs, rays_valid):
+    """`forward_jacobian`'s (r, J) from one decoder pass and one backward
+    pass to the decoder's input rows (no weight gradients).  Each SDF
+    value depends only on its own row (code, y), y = T_base p, so the
+    backward of the summed SDF gives every row's g_code and g_y; at xi = 0
+    `exp_sim3`'s [v, w, s] move y by v + w x y + s y, so the row's pose
+    columns are g_y, y x g_y and g_y . y.  A ray's residual depends only on
+    its own samples: its row is theirs weighted by d r / d sdf, from one
+    backward through `losses.render_from_sdf`."""
+    count(REVERSE_JACOBIANS)
+    B, C = code.shape
+    P, R = pts_cam.shape[1], rays_cam.shape[1]
+    zeros7 = torch.zeros((B, 7), dtype=code.dtype, device=code.device)
+    d, samples = losses.render_samples(rays_cam, depth_obs)
+    y = lie.transform_points(lie.exp_sim3(zeros7) @ T_base, torch.cat([pts_cam, samples], dim=-2))
+    with torch.enable_grad():
+        xyz = y.detach().requires_grad_()
+        rows = code.detach()[:, None, :].expand(B, y.shape[1], C).requires_grad_()
+        sdf = decode_sdf(params, dec_cfg, rows, xyz, [(W.detach(), b.detach()) for W, b in wb])
+        g_code, g_y = torch.autograd.grad(sdf.sum(), (rows, xyz))
+        sdf_ren = sdf.detach()[:, P:].reshape(d.shape).requires_grad_()
+        r_ren = losses.render_from_sdf(sdf_ren, d, depth_obs, rays_valid)
+        (w_ren,) = torch.autograd.grad(r_ren.sum(), sdf_ren)
+    J_rows = torch.cat([g_y, torch.linalg.cross(y, g_y, dim=-1), torch.sum(g_y * y, dim=-1, keepdim=True), g_code],
+                       dim=-1)
+    r = torch.cat([torch.where(pts_valid, sdf.detach()[:, :P], 0.0), r_ren.detach()], dim=-1)
+    J_ren = torch.einsum("brs,brsd->brd", w_ren, J_rows[:, P:].reshape(B, R, d.shape[-1], -1))
+    return r, torch.cat([torch.where(pts_valid[..., None], J_rows[:, :P], 0.0), J_ren], dim=1)
+
+
 def _reconstruct(params, dec_cfg, opt_cfg, T_oc_init, code_init, pts_cam, pts_valid, rays_cam, depth_obs,
-                 rays_valid) -> ShapeOptResult:
+                 rays_valid, jacobian=None) -> ShapeOptResult:
+    """The batched LM.  `jacobian` builds each trip's (r, J); by default
+    `reverse_jacobian` on CUDA and `forward_jacobian` elsewhere."""
     B, C = code_init.shape
     D = 7 + C
     dev, f32 = code_init.device, code_init.dtype
     wb = weights(params, dec_cfg)
+    if jacobian is None:
+        jacobian = reverse_jacobian if dev.type == "cuda" else forward_jacobian
     zeros7 = torch.zeros((B, 7), dtype=f32, device=dev)
     eye = torch.eye(D, dtype=f32, device=dev)
     prior = torch.zeros(D, dtype=f32, device=dev)
@@ -107,8 +165,8 @@ def _reconstruct(params, dec_cfg, opt_cfg, T_oc_init, code_init, pts_cam, pts_va
         with TRACER.span("shapes.trip"):
             theta = torch.cat([zeros7, code], dim=-1)
             with TRACER.span("shapes.jacobian"):
-                r, J = vmap(lambda v: jvp(lambda t: residuals(t, T_base), (theta,), (v.expand(B, D),)))(eye)
-            r, J = r[0], J.permute(1, 2, 0)  # (B, M), (B, M, D)
+                r, J = jacobian(params, dec_cfg, wb, code, T_base, pts_cam, pts_valid, rays_cam, depth_obs,
+                                rays_valid)  # (B, M), (B, M, D)
             w = torch.cat(robust_weights(r[:, :pts_cam.shape[1]], r[:, pts_cam.shape[1]:]), dim=-1)
             Jw = J * w[..., None]
             H = J.transpose(-1, -2) @ Jw + torch.diag(prior)

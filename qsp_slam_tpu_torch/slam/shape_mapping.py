@@ -30,7 +30,8 @@ from .objects import ObjectTable
 SCALE_MARGIN = 1.4  # ellipsoid max half-axis -> unit-sphere scale margin
 RENDER_SAMPLES = 32  # depth samples per ray of the render term
 CPU_BUDGET_BYTES = 4 << 30  # the LM's tangent working set per chunk on the CPU
-WORKING_SET = 3.2  # tangent-batch layers alive at once in an LM trip (measured 3.14)
+WORKING_SET = 3.2  # tangent-batch layers alive at once in an LM trip on the CPU (measured 3.14)
+REVERSE_WORKING_SET = 1.2  # the card's trip over its saved activations and J (H100: 1.09-1.14)
 
 
 class ShapeInputs(NamedTuple):
@@ -116,20 +117,32 @@ def keypoint_depth_image(xy: torch.Tensor, depth: torch.Tensor, height: int, wid
 
 
 def hypothesis_bytes(dec_cfg: DeepSDFConfig, num_points: int, num_rays: int) -> int:
-    """Bytes of one hypothesis's LM trip: the primal and 7 + C tangents of
-    a hidden layer at every decoder point, times WORKING_SET such layers.
-    The H100 measured 3.14 at the reference's width (3.91 GB per
-    hypothesis of 8448 points; `chip_smoke.py` phase 16 holds each shape
-    step's peak under this estimate)."""
+    """Bytes of one hypothesis's LM trip on the CPU's forward-mode path
+    (`shape_opt.forward_jacobian`): the primal and 7 + C tangents of a
+    hidden layer at every decoder point, times WORKING_SET such layers.
+    The H100 measured 3.14 on that path at the reference's width (3.91 GB
+    per hypothesis of 8448 points)."""
     pts = num_points + num_rays * RENDER_SAMPLES
     return int(WORKING_SET * pts * (8 + dec_cfg.code_dim) * dec_cfg.hidden * 4)
 
 
+def reverse_hypothesis_bytes(dec_cfg: DeepSDFConfig, num_points: int, num_rays: int) -> int:
+    """Bytes of one hypothesis's LM trip on the card's reverse-mode path
+    (`shape_opt.reverse_jacobian`): every layer's saved activation and the
+    row's 7 + C Jacobian columns at every decoder point, times
+    REVERSE_WORKING_SET (`chip_smoke.py` phase 16 holds each shape step's
+    peak under this estimate)."""
+    pts = num_points + num_rays * RENDER_SAMPLES
+    return int(REVERSE_WORKING_SET * pts * (dec_cfg.num_layers * dec_cfg.hidden + 7 + dec_cfg.code_dim) * 4)
+
+
 def chunk_size(dec_cfg: DeepSDFConfig, num_points: int, num_rays: int, device: torch.device) -> int:
-    """Hypotheses per LM call: half the card's memory, or 4 GiB on the CPU."""
-    budget = (torch.cuda.get_device_properties(device).total_memory // 2 if device.type == "cuda"
-              else CPU_BUDGET_BYTES)
-    return max(1, budget // hypothesis_bytes(dec_cfg, num_points, num_rays))
+    """Hypotheses per LM call: half the card's memory over the reverse
+    path's bytes, or 4 GiB on the CPU over the forward path's."""
+    if device.type == "cuda":
+        budget = torch.cuda.get_device_properties(device).total_memory // 2
+        return max(1, budget // reverse_hypothesis_bytes(dec_cfg, num_points, num_rays))
+    return max(1, CPU_BUDGET_BYTES // hypothesis_bytes(dec_cfg, num_points, num_rays))
 
 
 def reconstruct_due_objects(

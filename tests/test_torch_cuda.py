@@ -18,10 +18,12 @@ RGB-D and stereo object runs: the same keyframes, object slots, labels
 dense pose solve within 1e-4 of the CPU's, relative; the DeepSDF decoder
 at the reference's width within 1e-5 of the CPU, two joint pose + code LM
 trips at that width within 1e-3 (deeper runs part along the code's weak
-directions on any two machines), the package's marching-cubes build
-on a sphere, and the map-sharded BA as two gloo ranks on the card against
-one NCCL rank (costs 1e-4 relative, poses 1e-4, points 1e-3, both ranks
-bitwise equal).
+directions on any two machines), the card's reverse-mode shape Jacobian
+within 1e-5 (relative) of the CPU's forward-mode one at the benchmark's
+width, a shape step's peak memory under the chunking's estimate, the
+package's marching-cubes build on a sphere, and the map-sharded BA as two
+gloo ranks on the card against one NCCL rank (costs 1e-4 relative, poses
+1e-4, points 1e-3, both ranks bitwise equal).
 """
 
 import numpy as np
@@ -435,6 +437,73 @@ def test_full_width_reconstruct_object_matches_cpu(gen):
     assert float((card.T_oc.cpu() - cpu.T_oc).abs().max()) < 1e-3
     assert float((card.code.cpu() - cpu.code).abs().max()) < 1e-3
     assert torch.equal(card.is_good.cpu(), cpu.is_good)
+
+
+def _benchmark_width_problem(B: int, P: int, R: int):
+    """The benchmark's decoder (64/512 x 9, latent_in 4; He-normal weights
+    from a CPU generator) and B flip hypotheses of an object 2 m ahead at
+    scale 0.4 with P surface points and R rays, a fifth of the points and
+    a seventh of the rays masked.  -> (cfg, params, LM arguments), on the
+    CPU."""
+    from qsp_slam_tpu_torch.models.deepsdf import DeepSDFConfig, init_decoder
+    from qsp_slam_tpu_torch.models.shape_opt import flip_hypotheses
+
+    cfg = DeepSDFConfig(64, 512, 9, (4,))
+    g = torch.Generator().manual_seed(7)
+    params = init_decoder(g, cfg, device="cpu")
+    pts = torch.randn(P, 3, generator=g) * 0.3 + torch.tensor([0.0, 0.0, 2.0])
+    rays = torch.cat([torch.randn(R, 2, generator=g) * 0.1, torch.ones(R, 1)], dim=-1)
+    depth = 1.8 + 0.4 * torch.rand(R, generator=g)
+    T0 = torch.diag(torch.tensor([2.5, 2.5, 2.5, 1.0]))
+    T0[2, 3] = -5.0
+    code = 0.1 * torch.randn(B, 64, generator=g)
+    pv = (torch.arange(P) + torch.arange(B)[:, None]) % 5 != 0
+    rv = (torch.arange(R) + torch.arange(B)[:, None]) % 7 != 3
+    return cfg, params, [flip_hypotheses(T0, B), code, pts.expand(B, -1, -1), pv, rays.expand(B, -1, -1),
+                         depth.expand(B, -1), rv]
+
+
+def test_card_reverse_jacobian_matches_cpu_forward_jacobian(gen):
+    """One Jacobian at the benchmark's width, no trips: the card's
+    `reverse_jacobian` (its LM's path) against the CPU's `forward_jacobian`
+    (`vmap(jvp)`, held to the JAX package's `jacfwd`) on 2 hypotheses of
+    64 points and 32 rays: r within 1e-5, J within 1e-5 of its largest
+    entry."""
+    from qsp_slam_tpu_torch.models.deepsdf import weights
+    from qsp_slam_tpu_torch.models.shape_opt import forward_jacobian, reverse_jacobian
+
+    cfg, params, (T, code, pts, pv, rays, depth, rv) = _benchmark_width_problem(2, 64, 32)
+    card = {k: {n: t.cuda() for n, t in p.items()} for k, p in params.items()}
+    args = (code, T, pts, pv, rays, depth, rv)
+    r_cpu, J_cpu = forward_jacobian(params, cfg, weights(params, cfg), *args)
+    with torch.no_grad():
+        r, J = reverse_jacobian(card, cfg, weights(card, cfg), *(a.cuda() for a in args))
+    assert J.shape == J_cpu.shape == (2, 96, 71)
+    assert float((r.cpu() - r_cpu).abs().max()) < 1e-5
+    assert float((J.cpu() - J_cpu).abs().max()) < 1e-5 * float(J_cpu.abs().max())
+
+
+def test_card_shape_step_memory_within_the_reverse_estimate(gen):
+    """The cell's shape step at the benchmark's width (12 hypotheses of 256
+    points and 256 rays, 5 trips) runs as one chunk on the card, and its
+    peak device memory above what was allocated before it stays under
+    the chunking's estimate (`reverse_hypothesis_bytes`), as
+    `chip_smoke.py` phase 16 holds it."""
+    from qsp_slam_tpu_torch.models.shape_opt import ShapeOptConfig, reconstruct_object
+    from qsp_slam_tpu_torch.slam.shape_mapping import chunk_size, reverse_hypothesis_bytes
+
+    cfg, params, args = _benchmark_width_problem(12, 256, 256)
+    assert chunk_size(cfg, 256, 256, torch.device("cuda")) >= 12
+    card = {k: {n: t.cuda() for n, t in p.items()} for k, p in params.items()}
+    args = [a.cuda() for a in args]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = reconstruct_object(card, cfg, *args, ShapeOptConfig(iters=5))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert bool(torch.isfinite(res.cost).all())
+    assert peak <= 12 * reverse_hypothesis_bytes(cfg, 256, 256), (peak, reverse_hypothesis_bytes(cfg, 256, 256))
 
 
 def test_marching_cubes_build(gen):

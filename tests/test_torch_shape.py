@@ -14,10 +14,13 @@ the start (later trips amplify f32 rounding in both packages), the shape
 inputs' points, rays and depths 1e-5 and their masks exact, the SDF grid
 1e-5 and marching cubes exact; rendered depth 1e-4 where both packages hit, with at most 0.5% of
 the pixels hit by one package only (the hit tests threshold f32 values at
-silhouettes).
+silhouettes).  The card's reverse-mode Jacobian runs here too: held to
+the CPU's forward-mode one within 2e-6 of J's largest entry, and its LM
+to the reference's twelve-trip outcome.
 """
 
 import json
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -295,6 +298,83 @@ def test_reconstruct_object_outcome_matches_the_reference(toy, problem):
     close(bat.T_oc[0], one.T_oc, 1e-4)
 
 
+def _reverse_lm(params, cfg, opt_cfg, *args):
+    """`reconstruct_object` through the card's `reverse_jacobian`, run on
+    the CPU (numpy arguments)."""
+    return topt._batched(lambda *a: topt._reconstruct(params, cfg, opt_cfg, *a, jacobian=topt.reverse_jacobian),
+                         *(T(x) for x in args))
+
+
+def test_reconstruct_object_outcome_through_the_reverse_jacobian_matches_the_reference(toy, problem):
+    """The card's path (`reverse_jacobian`) on the CPU over the twelve
+    trips of the test above: both converge, the port's final cost is no
+    more than 2% above the reference's and is the reference's own cost at
+    the port's result (to 1e-5), the port passes the surface checks, and a
+    batch row with no data stays not good at cost 0 (over one trip: the
+    second carries the batch's other GEMM blocking to 2e-3 on this
+    problem).  The cost is held from above only: J's rounding differs from
+    `jacfwd`'s by about 1e-6, and twelve trips carry that as far as
+    one-ulp changes of the start carry the reference's own cost
+    (2.59-2.85 about its 2.71); on this problem the reverse path ends
+    lower, at 2.58-2.70 with the thread count."""
+    jparams, params, _, _ = toy
+    T_init, pts, rays, depth, _ = problem
+    valid, none, zero = np.ones(256, bool), np.zeros(256, bool), np.zeros(16, np.float32)
+    ref = jopt.reconstruct_object(jparams, JTOY, *(jnp.asarray(x) for x in (T_init, zero, pts, valid, rays, depth, valid)),
+                                  jopt.ShapeOptConfig(iters=12))
+    got = _reverse_lm(params, TOY, topt.ShapeOptConfig(iters=12), T_init, zero, pts, valid, rays, depth, valid)
+    assert bool(ref.is_good) and bool(got.is_good)
+    assert float(got.cost) < 1.02 * float(ref.cost)
+    at_got = jopt.reconstruct_object(jparams, JTOY, *(jnp.asarray(x) for x in (got.T_oc.numpy(), got.code.numpy(), pts,
+                                                                                 valid, rays, depth, valid)),
+                                     jopt.ShapeOptConfig(iters=0))
+    close(got.cost, at_got.cost, 1e-5 * float(at_got.cost))
+    sdf_est = tsdf.decode_sdf(params, TOY, got.code, topt.lie.transform_points(got.T_oc, T(pts)))
+    sdf_init = tsdf.decode_sdf(params, TOY, torch.zeros(16), topt.lie.transform_points(T(T_init), T(pts)))
+    assert float(sdf_est.abs().mean()) < min(0.05, 0.5 * float(sdf_init.abs().mean()))
+    two = [np.stack([x, x]) for x in (T_init, zero, pts, valid, rays, depth, valid)]
+    two[3][1] = two[6][1] = none
+    one = _reverse_lm(params, TOY, topt.ShapeOptConfig(iters=1), T_init, zero, pts, valid, rays, depth, valid)
+    bat = _reverse_lm(params, TOY, topt.ShapeOptConfig(iters=1), *two)
+    assert bat.is_good.tolist() == [bool(one.is_good), False] and float(bat.cost[1]) == 0.0
+    close(bat.T_oc[0], one.T_oc, 1e-4)
+
+
+REVERSE_WIDTHS = {"toy": (TOY, 256), "64/512x9": (tsdf.DeepSDFConfig(64, 512, 9, (4,)), 32)}
+
+
+@pytest.mark.parametrize("width", list(REVERSE_WIDTHS))
+def test_reverse_jacobian_matches_the_forward_one(toy, problem, width):
+    """`reverse_jacobian` (the card's path, called under `no_grad`) against
+    `forward_jacobian` (`vmap(jvp)`, the CPU's) on three hypotheses, one
+    with no valid surface point and one with no valid ray, the others
+    masked in part: the trained toy decoder on the problem's 256 points
+    and rays, and the benchmark's 64/512 x 9 decoder (random weights) on
+    32 of them.  r within 1e-6, J within f32 rounding (2e-6 of its largest
+    entry), and the masked rows zero in both."""
+    cfg, n = REVERSE_WIDTHS[width]
+    T_init, pts, rays, depth, _ = problem
+    if width == "toy":
+        params, code = toy[1], T(toy[2][:3])
+    else:
+        params = tsdf.init_decoder(torch.Generator().manual_seed(7), cfg, device="cpu")
+        code = 0.1 * torch.randn(3, cfg.code_dim, generator=torch.Generator().manual_seed(8))
+    i = np.arange(n)
+    pv, rv = T(np.stack([i % 4 != 0, i < 0, i % 3 != 1])), T(np.stack([i % 5 != 2, i % 2 == 0, i < 0]))
+    args = (params, cfg, tsdf.weights(params, cfg), code, topt.flip_hypotheses(T(T_init), 3),
+            *(T(x[:n]).expand((3,) + x[:n].shape) for x in (pts,)), pv,
+            *(T(x[:n]).expand((3,) + x[:n].shape) for x in (rays, depth)), rv)
+    r_fwd, J_fwd = topt.forward_jacobian(*args)
+    with torch.no_grad():
+        r_rev, J_rev = topt.reverse_jacobian(*args)
+    assert J_rev.shape == J_fwd.shape == (3, 2 * n, 7 + cfg.code_dim)
+    close(r_rev, r_fwd, 1e-6)
+    close(J_rev, J_fwd, 2e-6 * float(J_fwd.abs().max()))
+    masked = torch.cat([~pv, ~rv], dim=-1)
+    assert not bool(J_rev[masked].any() | J_fwd[masked].any() | r_rev[masked].any())
+    assert float(J_fwd[~masked].abs().amax(0).min()) > 0  # every column is exercised
+
+
 FOG_SDF = 0.05971  # the constant SDF whose occupancy puts a ray's expected depth on its observation
 
 
@@ -508,6 +588,22 @@ def test_chunks_fit_the_budget():
     assert 3.91e9 < per < 1.05 * 3.91e9  # the H100's peak per hypothesis at this size, with 5% to spare
     assert tmap.chunk_size(full, 256, 256, torch.device("cpu")) == max(1, tmap.CPU_BUDGET_BYTES // per)
     assert tmap.chunk_size(TOY, 256, 256, torch.device("cpu")) >= 8
+
+
+def test_card_chunks_follow_the_reverse_path(monkeypatch):
+    """On a card each chunk is sized from the reverse path's bytes: at the
+    benchmark's 64/512 x 9 with 256 points and rays, an 80 GB card takes
+    the cell's 12 hypotheses (3 objects x 4 flips) in one chunk, while the
+    CPU keeps the forward path's estimate."""
+    full = tsdf.DeepSDFConfig(64, 512, 9, (4,))
+    per = tmap.reverse_hypothesis_bytes(full, 256, 256)
+    assert per == int(tmap.REVERSE_WORKING_SET * (256 + 256 * 32) * (9 * 512 + 71) * 4)
+    assert 0.1788e9 < per < 1.1 * 0.1788e9  # the H100's largest peak per hypothesis at this size, 10% to spare
+    card = SimpleNamespace(total_memory=80 * 10**9)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: card)
+    assert tmap.chunk_size(full, 256, 256, torch.device("cuda")) == card.total_memory // 2 // per >= 12
+    forward = tmap.hypothesis_bytes(full, 256, 256)
+    assert tmap.chunk_size(full, 256, 256, torch.device("cpu")) == max(1, tmap.CPU_BUDGET_BYTES // forward)
 
 
 # -- meshes, rendering, configuration -------------------------------------------------------------
