@@ -2,10 +2,11 @@
 the comparison that decides `correct`, and the numbers the metric readers
 read.
 
-Set-up renders the cell's frames and detections from the seed (host
-memory), makes the decoder's weights on the device, builds the program's
-system and tracks the leading frames up to and including the first frame
-that runs a shape step, which warms every kernel and shape the window
+Set-up renders the cell's frames and detections as its sensor takes them
+(`harness/sensors/`; host memory), makes the decoder's weights on the
+device, builds the program's system and tracks the leading frames (each
+through the sensor's call) up to and including the first frame that runs
+a shape step, which warms every kernel and shape the window
 uses.  The window starts at the next frame and ends at the first frame
 that completes a shape step once `seconds` have passed and at least
 MIN_PERIODS periods have run, so it holds only whole shape periods (the
@@ -17,6 +18,7 @@ first period, and the span readers read the periods after it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -67,10 +69,14 @@ def load_cell(workload: str, bench: dict | None = None) -> dict:
 
 class Frames:
     """The host clock of every tracked frame (synchronised at both ends)
-    and what the system's `stats` gained in it."""
+    and what the system's `stats` gained in it.  Each frame goes to the
+    program through the sensor's call; `capture` (or None) keeps the
+    sensor's shape-step depth image of the frames whose shape step the
+    comparison reads."""
 
-    def __init__(self, sysm, traffic, shape, kernels, k1, k2):
+    def __init__(self, sysm, sensor, traffic, shape, kernels, k1, k2, capture=None):
         self.sysm, self.traffic, self.shape, self.kernels = sysm, traffic, shape, kernels
+        self.call, self.capture = getattr(sysm, sensor.CALL), capture
         self.k1, self.k2 = k1, k2  # the kernels' entries, which hold their launch counters
         self.rows = []
 
@@ -81,16 +87,20 @@ class Frames:
         kfs, n_steps = st["keyframes"], len(self.shape.steps)
         k1_0, k2_0 = self.k1.launches, dict(self.k2.shapes)
         self.shape.frame = self.kernels.frame = i
+        if self.capture is not None:
+            self.capture.frame = i
         hooks.sync()
         t0 = time.perf_counter()
         if profiled:
             with torch.profiler.record_function(f"frame_{i}"):
-                self.sysm.track_rgbd(a, b, det)
+                self.call(a, b, det)
         else:
-            self.sysm.track_rgbd(a, b, det)
+            self.call(a, b, det)
         hooks.sync()
         t1 = time.perf_counter()
         steps = self.shape.steps[n_steps:]
+        if self.capture is not None and not (steps and self.shape.keep):
+            self.capture.by_frame.pop(i, None)
         row = {"frame": i, "t0": t0, "t1": t1, "ms": (t1 - t0) * 1e3, "keyframe": st["keyframes"] > kfs,
                "shape_ms": sum(s["ms"] for s in steps), "shape_steps": len(steps), "profiled": profiled,
                "k1_launches": self.k1.launches - k1_0,
@@ -115,6 +125,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device: str = "cuda"
     t_start = time.perf_counter() if t_start is None else t_start
     marks = [("start", time.perf_counter())]
     cfg, traffic_p = cell["config"], cell["traffic"]
+    sensor = setup.sensor(cfg)
     s_weights, s_sample = seeds(seed, 2)
     if device == "cuda":
         build.build(["fast_nms", "hamming"])
@@ -124,7 +135,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device: str = "cuda"
     cam = setup.camera(cfg)
     raw = setup.decoder_weights(cfg, s_weights, device)
     marks.append(("weights", time.perf_counter()))
-    traffic = generate(traffic_p, cam, device)
+    traffic = generate(traffic_p, cam, device, sensor)
     marks.append((f"{len(traffic.frames)} frames rendered", time.perf_counter()))
     sysm = setup.build_system(cfg, raw, device)
     n = len(traffic.frames)
@@ -132,10 +143,13 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device: str = "cuda"
 
     shape = hooks.ShapeSteps(shape_mapping.reconstruct_due_objects, shape_opt.reconstruct_object)
     kern = hooks.KernelCaptures(fast_nms.fast_score_nms_pyramid, hamming.hamming_packed)
+    depth_func = sensor.capture()
+    capture = hooks.Capture(depth_func) if depth_func is not None else None
     if fault is not None:
         fault(shape, kern)
-    frames = Frames(sysm, traffic, shape, kern, fast_nms.fast_score_nms_pyramid, hamming.hamming_packed)
-    with shape, kern:
+    frames = Frames(sysm, sensor, traffic, shape, kern, fast_nms.fast_score_nms_pyramid, hamming.hamming_packed,
+                    capture)
+    with shape, kern, capture or contextlib.nullcontext():
         shape.keep = False
         first = None
         for i in range(n):
@@ -213,7 +227,8 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device: str = "cuda"
     if device == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    got["numbers"] = checks.compare(cfg, traffic, s_weights, got["shape_steps"], kern, device)
+    captured = capture.by_frame if capture is not None else {}
+    got["numbers"] = checks.compare(cfg, sensor, traffic, s_weights, got["shape_steps"], kern, captured, device)
     got["numbers"].update(checks.truth_numbers(traffic, state, window))
     got["lm_costs"] = got["numbers"].pop("lm_costs")
     got["reference_s"] = time.perf_counter() - t_ref

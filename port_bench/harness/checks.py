@@ -5,10 +5,12 @@ number passes at or under its limit):
 
   k1_mismatch     score-map elements where K1's output on the sampled
                   window frames differs from the plain FAST + NMS of the
-                  same levels, plus sampled frames with no K1 call (exact:
-                  limit 0);
+                  same levels, plus sampled frames with no K1 call and
+                  calls whose levels are not the pyramids of the sensor's
+                  K1 images (exact: limit 0);
   pyramid_gap     the largest gap between those levels and the
-                  reference's pyramid of the frame's own image (gray levels);
+                  reference's pyramids of the frame's own images, in the
+                  launch's order (gray levels);
   k2_mismatch     distances where the sampled K2 calls differ from the
                   popcount of the XOR of their descriptor words, plus
                   sampled frames with no K2 call (exact);
@@ -42,7 +44,14 @@ number passes at or under its limit):
   shape_fold_gap  the largest gap between the table after the step and the
                   lowest-cost converged hypothesis of each due object;
   shape_input_gap the largest gap between the step's surface points, ray
-                  depths and rays and the frame's own depth image;
+                  depths and rays and the depth image the sensor says the
+                  step was given (the frame's own for RGB-D, the captured
+                  keypoint depth image for stereo);
+  keypoint_depth_gap  where the sensor's depth image is the program's
+                  (stereo), the median relative gap between its depths at
+                  the window's shape steps and the scene's true depth at
+                  the same pixels: a wrong baseline or a broken stereo
+                  match moves it;
   pose_rmse_m     the window's tracked camera centres against the
                   traffic's true ones (metres, in the first camera's frame);
   object_centre_m the largest distance from a mapped object's centre to
@@ -86,18 +95,18 @@ def needed_flop(steps: list, dims: list, iters: int) -> float:
     return total
 
 
-def _kernel_numbers(traffic, kern, cfg) -> dict:
+def _kernel_numbers(traffic, kern, cfg, sensor) -> dict:
     k1_bad, pyr_gap, k2_bad = 0, 0.0, 0
     shapes = setup.level_shapes(cfg)
-    n = len(shapes)
     for call in kern.k1_calls:
-        gray = traffic.frames[call["frame"]][0]
-        ref_levels = refk.pyramid(torch.as_tensor(gray).to(call["levels"][0].device, torch.float32), shapes)
+        frame, dev = traffic.frames[call["frame"]], call["levels"][0].device
+        ref_levels = [lv for i in sensor.K1_IMAGES
+                      for lv in refk.pyramid(torch.as_tensor(frame[i]).to(dev, torch.float32), shapes)]
         for lv, ref_lv, outs in zip(call["levels"], ref_levels, call["out"]):
             pyr_gap = max(pyr_gap, float((lv - ref_lv).abs().max()))
             for t, o in zip(call["thresholds"], outs):
                 k1_bad += int((o != refk.fast_nms(lv, t)).sum())
-        if len(call["levels"]) != n:
+        if len(call["levels"]) != len(ref_levels):
             k1_bad += 1
     for call in kern.k2_calls_seen:
         k2_bad += int((call["out"].to(torch.int64) != refk.hamming(call["a"], call["b"])).sum())
@@ -117,7 +126,7 @@ def _settings_mismatch(st: dict, opt: dict, dec: dict, due: int) -> int:
     return bad + int(st["hyps"] != due * max(1, opt["num_flips"]))
 
 
-def _shape_numbers(cfg, traffic, s_weights, steps, device) -> dict:
+def _shape_numbers(cfg, sensor, traffic, s_weights, steps, captured, device) -> dict:
     d = setup.decoder_shape(cfg)
     opt = setup.shape_opt(cfg)
     wb = refs.decoder_weights(setup.decoder_weights(cfg, s_weights, device))
@@ -166,7 +175,11 @@ def _shape_numbers(cfg, traffic, s_weights, steps, device) -> dict:
         fold_gap = max(fold_gap, float((st["after"]["code"][idx] - code).abs().max()),
                        float((st["after"]["Tow_shape"][idx].double() - Tow).abs().max()),
                        float((st["after"]["shape_ok"][idx] != (st["before"]["shape_ok"][idx] | good)).sum()))
-        depth_img = torch.as_tensor(traffic.frames[st["frame"]][1]).to(inputs.rays.device)
+        depth_img = sensor.shape_depth(traffic.frames[st["frame"]], captured.get(st["frame"]))
+        if depth_img is None:  # the sensor's depth image never reached the hook
+            input_gap = float("inf")
+            continue
+        depth_img = torch.as_tensor(depth_img).to(inputs.rays.device)
         u = torch.round(inputs.rays[..., 0].double() * cam.fx + cam.cx).long().clamp(0, cam.width - 1)
         v = torch.round(inputs.rays[..., 1].double() * cam.fy + cam.cy).long().clamp(0, cam.height - 1)
         sel = inputs.rays_ok | inputs.pts_ok
@@ -177,6 +190,17 @@ def _shape_numbers(cfg, traffic, s_weights, steps, device) -> dict:
             "shape_fold_gap": fold_gap, "shape_input_gap": input_gap, "shape_hypotheses": hyps,
             "shape_settings_mismatch": mismatch,
             "shape_lm_short_share": float((fell[:, 0] < 0.5 * fell[:, 1]).double().mean()), "lm_costs": c.tolist()}
+
+
+def _keypoint_depth_numbers(traffic, captured: dict) -> dict:
+    """The captured depth images' nonzero pixels against the true depth."""
+    gaps = []
+    for f, img in captured.items():
+        truth = torch.as_tensor(traffic.depth[f]).to(img.device)
+        seen = (img > 0) & (truth > 0)
+        gaps.append(((img - truth).abs() / truth)[seen].double())
+    gaps = torch.cat(gaps) if gaps else torch.zeros(0)
+    return {"keypoint_depth_gap": float(gaps.median())} if gaps.numel() else {}
 
 
 def _shape_matrix(e: np.ndarray, R0: np.ndarray) -> np.ndarray:
@@ -211,10 +235,13 @@ def truth_numbers(traffic, state: dict, window: list) -> dict:
             "object_shape_gap": shape_gap, "objects": len(obj)}
 
 
-def compare(cfg, traffic, s_weights, steps, kern, device) -> dict:
+def compare(cfg, sensor, traffic, s_weights, steps, kern, captured, device) -> dict:
+    """`captured`: the sensor's shape-step depth image by frame, where the
+    sensor names one (`harness/sensors/`), else empty."""
     with torch.no_grad():
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
-        out = _kernel_numbers(traffic, kern, cfg)
-        out.update(_shape_numbers(cfg, traffic, s_weights, steps, device))
+        out = _kernel_numbers(traffic, kern, cfg, sensor)
+        out.update(_shape_numbers(cfg, sensor, traffic, s_weights, steps, captured, device))
+        out.update(_keypoint_depth_numbers(traffic, captured))
     return out

@@ -2,8 +2,10 @@
 
 The benchmark reads the program through a few of its public names: the
 facade's `track_*` calls, the shape step (`reconstruct_due_objects`, with
-the batched LM `reconstruct_object` inside it), and the two hand-written kernels' entries
-(`fast_score_nms_pyramid`, `hamming_packed`) with their launch counters.
+the batched LM `reconstruct_object` inside it), the two hand-written kernels' entries
+(`fast_score_nms_pyramid`, `hamming_packed`) with their launch counters,
+and where the sensor names one (`harness/sensors/`), the function that
+makes the shape step's depth image (`keypoint_depth_image` for stereo).
 A hook rebinds a function in every module of the program that imported
 it, and never in the module that defines it (whose body updates the
 function's own counters), and puts every binding back on exit.
@@ -131,3 +133,23 @@ class KernelCaptures:
     def __exit__(self, *exc):
         for h in reversed(self._hooks):
             h.__exit__(*exc)
+
+
+class Capture:
+    """The output of `func` (the sensor's shape-step depth image) on each
+    frame, kept on the device as the program made it, in `by_frame`."""
+
+    def __init__(self, func):
+        self.func, self.frame, self.by_frame = func, -1, {}
+
+    def _capture(self, *args):
+        out = self.func(*args)
+        self.by_frame[self.frame] = out
+        return out
+
+    def __enter__(self):
+        self._hook = Rebind(self.func, self._capture).__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._hook.__exit__(*exc)

@@ -4,7 +4,9 @@ and the program's system built as the configuration states.
 
 Configuration keys (each file lists them; `reduced` and `assumed` say
 what differs from its source):
-  sensor                        "rgbd"
+  sensor                        a module under `harness/sensors/`: "rgbd"
+                                (gray and depth images) or "stereo" (a
+                                rectified pair, baseline Camera.bf / fx)
   Camera.fx/fy/cx/cy, Camera.width/height, Camera.bf (baseline x fx),
   Camera.k1/k2/p1/p2[/k3]       the yaml's camera
   ThDepth, DepthMapFactor       close-depth factor, depth PNG scale
@@ -14,15 +16,31 @@ what differs from its source):
   Optimizer.w_*/huber_*/lm_lambda0           the LM's cost weights, Huber
                                              widths, priors and first damping
   System.kmax/nmax/emax/depth_max_m/local_map_budget
+  System.options                (optional) a dict of further `SlamSystem`
+                                keyword arguments, such as the program's
+                                port-only options, which are off unless
+                                named here; each key must be a field of
+                                `SlamSystem` that the keys above do not set
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from ..reference import kernels as refk
 from ..reference.shape import layer_dims
 from ..traffic.generator import Camera
+from . import sensors
+
+# The `SlamSystem` arguments `build_system` sets from the keys above.
+SET_HERE = ("cfg", "kmax", "nmax", "emax", "shape_prior", "device")
+
+
+def sensor(cfg: dict):
+    """The configuration's sensor module (`harness/sensors/<sensor>.py`)."""
+    return sensors.load(cfg["sensor"])
 
 
 def camera(cfg: dict) -> Camera:
@@ -70,9 +88,20 @@ def decoder_weights(cfg: dict, seed: int, device) -> list:
     return out
 
 
+def system_options(cfg: dict, system_cls) -> dict:
+    """`System.options`, each key checked against `system_cls`'s fields."""
+    options = dict(cfg.get("System.options", {}))
+    fields = {f.name for f in dataclasses.fields(system_cls) if f.init}
+    bad = sorted(k for k in options if k not in fields or k in SET_HERE)
+    if bad:
+        raise ValueError(f"System.options names {bad}: not keyword arguments of {system_cls.__name__} that "
+                         f"the configuration's other keys leave unset")
+    return options
+
+
 def build_system(cfg: dict, raw_weights: list, device):
     """The program's `SlamSystem` with the configuration's tracking,
-    capacities and shape prior."""
+    capacities, shape prior and `System.options`."""
     from qsp_slam_tpu_torch.frontend.orb import OrbConfig
     from qsp_slam_tpu_torch.frontend.pyramid import PyramidConfig
     from qsp_slam_tpu_torch.models.deepsdf import DeepSDFConfig
@@ -93,14 +122,21 @@ def build_system(cfg: dict, raw_weights: list, device):
         baseline=cam.baseline, depth_max=float(cfg["System.depth_max_m"]),
         local_map_budget=int(cfg["System.local_map_budget"]), close_depth_factor=float(cfg["ThDepth"]),
         dist_coef=dist, depth_png_scale=float(cfg.get("DepthMapFactor", 5000.0)))
+    options = system_options(cfg, SlamSystem)
     dec = DeepSDFConfig(**decoder_shape(cfg))
     opt = ShapeOptConfig(**shape_opt(cfg))
     params = {f"lin{i}": {"v": v, "g": g, "b": b} for i, (v, g, b) in enumerate(raw_weights)}
     return SlamSystem(track, kmax=int(cfg["System.kmax"]), nmax=int(cfg["System.nmax"]),
-                      emax=int(cfg["System.emax"]), shape_prior=(params, dec, opt), device=str(device))
+                      emax=int(cfg["System.emax"]), shape_prior=(params, dec, opt), device=str(device), **options)
 
 
 def level_shapes(cfg: dict) -> list[tuple[int, int]]:
     """(H, W) of each pyramid level of one image."""
     return refk.level_shapes(int(cfg["Camera.height"]), int(cfg["Camera.width"]), int(cfg["ORBextractor.nLevels"]),
                              float(cfg["ORBextractor.scaleFactor"]))
+
+
+def k1_level_shapes(cfg: dict) -> list[tuple[int, int]]:
+    """(H, W) of each level one K1 launch covers: one image's pyramid for
+    each image of the sensor's launch (`K1_IMAGES`), in the launch's order."""
+    return level_shapes(cfg) * len(sensor(cfg).K1_IMAGES)

@@ -13,8 +13,9 @@ K1_OPS_PER_PX = 140  # per (pixel, threshold): 16 ring taps x ~7 operations, the
 
 
 def k1_launch(level_shapes, thresholds: int = 2) -> dict:
-    """K1 (FAST score + 3x3 NMS) over one launch's levels: f32 pixels in,
-    one f32 score map per threshold out."""
+    """K1 (FAST score + 3x3 NMS) over one launch's levels (every pyramid
+    the launch covers, `setup.k1_level_shapes`): f32 pixels in, one f32
+    score map per threshold out."""
     px = sum(h * w for h, w in level_shapes)
     return {"operations": K1_OPS_PER_PX * px * thresholds / FP32_FLOP_S,
             "bytes": (4 * px + 4 * px * thresholds) / HBM_BYTES_S}

@@ -7,14 +7,12 @@ A frozen copy, rewritten, of the port's synthetic renderer
 program, so a later change to the program's generators leaves the
 benchmark's frames as they are.
 
-One scene kind, named by the traffic file's "scene": "room_objects", a
-box room (textures drawn from `texture_seed`) with the `objects`
-(half-axes, turn about the vertical, label) on the floor, evenly round a
-ring of `ring_radius_m` about the room's centre, and a hand-held RGB-D
-camera orbiting that centre at `camera_height_m`, looking down at
-`pitch_deg`, moving `step_m` per frame, so every object stays in view;
-each frame carries the gray image (uint8), the depth (float32 metres) and
-boxes with labels and, with `masks`, instance masks.
+The traffic file's "scene" names a module under `scenes/` that places the
+room, the objects and the camera's poses (`scenes/room_objects.py`).  The
+configuration's sensor (`harness/sensors/`) says what each frame renders:
+gray and depth images for RGB-D, a left and a right gray image for
+stereo.  Each frame also carries boxes with labels and, with `masks`,
+instance masks, from the frame's (left) camera.
 
 The traffic file fixes the whole scene, since the keyframe cadence, and
 with it the work of a shape period, follows the texture and the
@@ -24,13 +22,13 @@ decoder's weights and the sampled frames of a run (`harness/cell.py`).
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..reference import geometry as geo
+from . import scenes
 
 
 class Camera(NamedTuple):
@@ -60,14 +58,17 @@ class Scene(NamedTuple):
 
 
 class Traffic(NamedTuple):
-    """What a run feeds the system: `frames[i]` is (gray, depth, det),
-    numpy on the host; `T_cw` (N, 4, 4) float64 the true poses;
-    `ellipsoids` (O, 9) the true objects in the world."""
+    """What a run feeds the system: `frames[i]` is (a, b, det), numpy on
+    the host, as the sensor takes them ((gray, depth, det) for RGB-D);
+    `T_cw` (N, 4, 4) float64 the true poses; `ellipsoids` (O, 9) the true
+    objects in the world; `depth[i]` the frame's true depth (metres),
+    for the comparison only."""
 
     frames: list
     T_cw: np.ndarray
     ellipsoids: np.ndarray
     labels: np.ndarray
+    depth: list
 
 
 def seeds(seed: int, n: int) -> list[int]:
@@ -194,43 +195,21 @@ def detections(scene: Scene, T_cw: torch.Tensor, cam: Camera, min_pixels: float,
     return out
 
 
-def room_objects(p: dict, cam: Camera, device):
-    """The orbit round a ring of objects -> (scene, T_cw (N, 4, 4) f64)."""
-    hx, hy, hz = p["room_half_extent"]
-    room = make_room(p["room_half_extent"], p["texture_size"], p["texture_period_m"],
-                     np.random.default_rng(p["texture_seed"]), device)
-    objs = p["objects"]
-    els, labels = [], []
-    for slot, o in enumerate(objs):
-        half = o["half_axes_m"]
-        phi = 2.0 * math.pi * slot / len(objs)
-        r = p["ring_radius_m"]
-        els.append([r * math.sin(phi), hy - half[1], r * math.cos(phi), 0.0, o["yaw_rad"], 0.0, *half])
-        labels.append(int(o["label"]))
-    scene = Scene(room, torch.tensor(np.array(els, np.float32).reshape(-1, 9), device=device),
-                  torch.tensor(labels, dtype=torch.int32, device=device),
-                  torch.tensor([115.0 + 55.0 * lb for lb in labels], dtype=torch.float32, device=device))
-    h = p["camera_height_m"]
-    radius = h / math.tan(math.radians(p["pitch_deg"]))
-    poses = []
-    for i in range(p["frames"]):
-        th = math.radians(p["start_angle_deg"]) + i * p["step_m"] / radius
-        eye = (radius * math.sin(th), hy - h, -radius * math.cos(th))
-        poses.append(geo.look_at(eye, (0.0, hy, 0.0)))
-    return scene, torch.stack(poses)
+def generate(p: dict, cam: Camera, device, sensor) -> Traffic:
+    """Render every frame of the traffic file `p` for the camera `cam` as
+    the sensor module `sensor` (`harness/sensors/`) takes it."""
+    scene, T_cw = scenes.load(p["scene"]).make(p, cam, device)
 
+    def view(T):
+        gray, depth, inst = render(scene, T, cam)
+        return torch.clamp(gray, 0, 255).to(torch.uint8).cpu().numpy(), depth.cpu().numpy(), inst
 
-SCENES = {"room_objects": room_objects}
-
-
-def generate(p: dict, cam: Camera, device) -> Traffic:
-    """Render every frame of the traffic file `p` for the camera `cam`."""
-    scene, T_cw = SCENES[p["scene"]](p, cam, device)
-    frames = []
+    frames, depths = [], []
     for T in T_cw:
         T32 = T.to(device, torch.float32)
-        gray, depth, inst = render(scene, T32, cam)
+        a, b, depth, inst = sensor.render(view, T32, cam)
         det = detections(scene, T32, cam, p["min_box_pixels"], instance=inst if p["masks"] else None)
-        det = {k: v.cpu().numpy() for k, v in det.items()}
-        frames.append((torch.clamp(gray, 0, 255).to(torch.uint8).cpu().numpy(), depth.cpu().numpy(), det))
-    return Traffic(frames, T_cw.numpy(), scene.ellipsoids.cpu().numpy().astype(np.float64), scene.labels.cpu().numpy())
+        frames.append((a, b, {k: v.cpu().numpy() for k, v in det.items()}))
+        depths.append(depth)
+    return Traffic(frames, T_cw.numpy(), scene.ellipsoids.cpu().numpy().astype(np.float64),
+                   scene.labels.cpu().numpy(), depths)
